@@ -1,0 +1,34 @@
+"""spartan_tpu_torch: the Spartan zkSNARK (BN254, Hyrax) on PyTorch + CUDA.
+
+The port of ``spartan_tpu`` to an NVIDIA H100. It mirrors the JAX
+package's module layout and produces byte-identical proofs; its field,
+curve and MSM kernels are hand-written CUDA (``csrc/``), built with
+``nvcc`` for ``sm_90a`` on first use. Entry points run on the CUDA card
+unless given ``device="cpu"``, where every kernel wrapper runs its plain
+PyTorch version. Nothing here imports JAX or ``spartan_tpu``.
+
+Public API (lazy, so importing the package stays cheap):
+    Assignment, Instance, NIZKGens, NIZK, Transcript, RandomTape
+"""
+
+from __future__ import annotations
+
+_EXPORTS = {
+    "Assignment": ("spartan_tpu_torch.snark", "Assignment"),
+    "Instance": ("spartan_tpu_torch.snark", "Instance"),
+    "NIZKGens": ("spartan_tpu_torch.snark", "NIZKGens"),
+    "NIZK": ("spartan_tpu_torch.snark", "NIZK"),
+    "Transcript": ("spartan_tpu_torch.utils.transcript", "Transcript"),
+    "RandomTape": ("spartan_tpu_torch.utils.random_tape", "RandomTape"),
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        mod, attr = _EXPORTS[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(f"module 'spartan_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,114 @@
+"""R1CS constraint system shape.
+
+Counterpart of the shape part of ``spartan_tpu/core/r1cs.py`` (reference
+r1cs.rs:23-160): the shape, satisfiability check, MLE evaluation, digest,
+and the phase-1/phase-2 table builders. The SNARK-mode commitment and eval
+proof are not ported yet.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+
+from spartan_tpu_torch.core.mle import DensePolynomial
+from spartan_tpu_torch.core.sparse_mlpoly import SparseMatPolynomial
+from spartan_tpu_torch.ops import field as F
+from spartan_tpu_torch.utils.math import is_power_of_two, log_2
+
+fr = F.fr
+
+_ENTRY = np.dtype([("r", "<u8"), ("c", "<u8"), ("v", "V32")])
+
+
+class R1CSShape:
+    """num_cons x (2*num_vars) R1CS with power-of-two dims (r1cs.rs:23-82)."""
+
+    def __init__(self, num_cons: int, num_vars: int, num_inputs: int,
+                 A: list[tuple[int, int, int]], B: list[tuple[int, int, int]],
+                 C: list[tuple[int, int, int]]):
+        assert is_power_of_two(num_cons), "num_cons must be a power of 2"
+        assert is_power_of_two(num_vars), "num_vars must be a power of 2"
+        assert num_inputs < num_vars, "num_inputs must be less than num_vars"
+        self.num_cons = num_cons
+        self.num_vars = num_vars
+        self.num_inputs = num_inputs
+        nx = log_2(num_cons)
+        ny = log_2(2 * num_vars)
+
+        def build(tups):
+            return SparseMatPolynomial(nx, ny, [t[0] for t in tups], [t[1] for t in tups],
+                                       [t[2] for t in tups])
+
+        self.A = build(A)
+        self.B = build(B)
+        self.C = build(C)
+
+    def bincode_bytes(self) -> bytes:
+        """bincode-1.x legacy encoding of the shape, byte-identical to the
+        reference's ``bincode::serialize_into(&self)`` (r1cs.rs:98-99):
+        fixed-width little-endian u64 for usize, u64 length prefixes for
+        Vec, Scalar as its 32-byte LE serde form, field order = struct
+        order (num_cons, num_vars, num_inputs, A, B, C; each
+        SparseMatPolynomial = num_vars_x, num_vars_y, M). The entries are
+        packed through one numpy record array instead of a Python loop."""
+        out = bytearray()
+        for v in (self.num_cons, self.num_vars, self.num_inputs):
+            out += v.to_bytes(8, "little")
+        for mat in (self.A, self.B, self.C):
+            out += mat.num_vars_x.to_bytes(8, "little")
+            out += mat.num_vars_y.to_bytes(8, "little")
+            out += len(mat.vals).to_bytes(8, "little")
+            rec = np.empty(len(mat.vals), dtype=_ENTRY)
+            rec["r"] = mat.rows
+            rec["c"] = mat.cols
+            rec["v"] = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in mat.vals),
+                                     dtype="V32")
+            out += rec.tobytes()
+        return bytes(out)
+
+    def get_digest(self) -> bytes:
+        """zlib(bincode(shape)) at level 6, the reference's digest
+        (r1cs.rs:97-101)."""
+        return zlib.compress(self.bincode_bytes(), 6)
+
+    def build_z(self, vars_: list[int], inputs: list[int]) -> list[int]:
+        """z = (vars, 1, inputs, 0-padding) to length 2*num_vars."""
+        assert len(vars_) == self.num_vars
+        z = list(vars_) + [1] + list(inputs)
+        z += [0] * (2 * self.num_vars - len(z))
+        return z
+
+    def is_sat(self, vars_: list[int], inputs: list[int], device=None) -> bool:
+        assert len(vars_) == self.num_vars
+        assert len(inputs) == self.num_inputs
+        z = list(vars_) + [1] + list(inputs)
+        z_mont = F.encode_fr(z, device=device)
+        Az = self.A.multiply_vec_device(self.num_cons, z_mont)
+        Bz = self.B.multiply_vec_device(self.num_cons, z_mont)
+        Cz = self.C.multiply_vec_device(self.num_cons, z_mont)
+        diff = fr.sub(fr.mul(Az, Bz), Cz)
+        return bool(fr.is_zero(diff).all())
+
+    def evaluate(self, rx: list[int], ry: list[int], device=None) -> tuple[int, int, int]:
+        evals = SparseMatPolynomial.multi_evaluate([self.A, self.B, self.C], rx, ry, device)
+        return (evals[0], evals[1], evals[2])
+
+    def multiply_vec(self, num_rows: int, num_cols: int, z: list[int], device=None):
+        assert num_rows == self.num_cons
+        assert len(z) == num_cols
+        z_mont = F.encode_fr(z, device=device)
+        return (
+            DensePolynomial(self.A.multiply_vec_device(num_rows, z_mont)),
+            DensePolynomial(self.B.multiply_vec_device(num_rows, z_mont)),
+            DensePolynomial(self.C.multiply_vec_device(num_rows, z_mont)),
+        )
+
+    def compute_eval_table_sparse_device(self, evals_mont, num_cols: int):
+        """(A^T e, B^T e, C^T e) as device tensors (r1cs.rs:148-160)."""
+        return (
+            self.A.compute_eval_table_sparse_device(evals_mont, num_cols),
+            self.B.compute_eval_table_sparse_device(evals_mont, num_cols),
+            self.C.compute_eval_table_sparse_device(evals_mont, num_cols),
+        )

@@ -1,0 +1,130 @@
+"""Sparse multilinear polynomials for the R1CS A/B/C matrices.
+
+Counterpart of ``spartan_tpu/core/sparse_mlpoly.py`` (reference
+sparse_mlpoly.rs). Entries are numpy index arrays + one exact value list,
+with one Montgomery device copy of the values and int64 permutations for
+each access order (by row and by column, with segment boundaries), all
+precomputed. Every device operation is
+
+    gather -> H1 field multiply -> exact segment sums
+
+The segment sums replace the JAX package's ``_k_segment_sums_perm``
+(``sparse_mlpoly.py:36-50``, a log-depth field-add scan): the products'
+16-bit limb columns are prefix-summed in int64 (exact), differenced at the
+segment boundaries and reduced mod p. No scatter, no multiplicity limit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spartan_tpu_torch.core.mle import DensePolynomial, EqPolynomial
+from spartan_tpu_torch.ops import field as F
+from spartan_tpu_torch.ops.fields_host import FR_MOD
+
+fr = F.fr
+
+# terms per exact prefix-sum pass (int64 columns stay below 2^40)
+_SEG_CHUNK = 1 << 24
+
+
+def segment_sums(prods, starts, ends):
+    """Exact field sums of prods[starts[s]:ends[s]] for each segment s.
+
+    prods [N, 8] canonical Montgomery limbs; starts/ends [S] int64 (sorted
+    segments over the prefix array). Returns [S, 8]."""
+    assert prods.shape[0] < _SEG_CHUNK, "segment sums of more than 2^24 terms"
+    cols = F._to16(prods)                                   # [N, 16] int64
+    P = torch.cat((torch.zeros_like(cols[:1]), torch.cumsum(cols, dim=0)), dim=0)
+    return F.reduce_columns(P[ends] - P[starts], F.FR)
+
+
+def _k_segment_sums_perm(vals, weights, widx, perm, starts, ends):
+    """Per-segment sums of val_i * weights[widx_i], in `perm` order."""
+    prods = fr.mul(vals[perm], weights[widx[perm]])
+    return segment_sums(prods, starts, ends)
+
+
+def _k_gather_mul3(vals, eq_x, eq_y, rows, cols):
+    """sum_i val_i * eq_x[row_i] * eq_y[col_i] (one field reduction)."""
+    t = fr.mul(fr.mul(vals, eq_x[rows]), eq_y[cols])
+    return fr.reduce_sum(t, axis=0)
+
+
+class SparseMatPolynomial:
+    """MLE of a sparse matrix (sparse_mlpoly.rs:36-181), device-accelerated."""
+
+    def __init__(self, num_vars_x: int, num_vars_y: int, rows, cols, vals):
+        self.num_vars_x = num_vars_x
+        self.num_vars_y = num_vars_y
+        self.rows = np.asarray(rows, dtype=np.int64)
+        self.cols = np.asarray(cols, dtype=np.int64)
+        self.vals = [v % FR_MOD for v in vals]
+        self._order_r = np.argsort(self.rows, kind="stable")
+        self._order_c = np.argsort(self.cols, kind="stable")
+        self._rows_sorted = self.rows[self._order_r]
+        self._cols_sorted = self.cols[self._order_c]
+        self._dev: dict = {}   # device -> tensors (lazy)
+        self._bnd_cache: dict = {}
+
+    def _device(self, device):
+        key = str(device)
+        if key not in self._dev:
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            self._dev[key] = {
+                "vals": F.encode_fr(self.vals, device=device),
+                "rows": t(self.rows),
+                "cols": t(self.cols),
+                "perm_r": t(self._order_r),
+                "perm_c": t(self._order_c),
+            }
+        return self._dev[key]
+
+    def _boundaries(self, axis: str, num_segments: int, device):
+        key = (axis, num_segments, str(device))
+        if key not in self._bnd_cache:
+            keys = self._rows_sorted if axis == "row" else self._cols_sorted
+            starts = np.searchsorted(keys, np.arange(num_segments), side="left")
+            ends = np.searchsorted(keys, np.arange(num_segments), side="right")
+            self._bnd_cache[key] = (torch.from_numpy(starts).to(device),
+                                    torch.from_numpy(ends).to(device))
+        return self._bnd_cache[key]
+
+    def multiply_vec_device(self, num_rows: int, z_mont) -> torch.Tensor:
+        """M @ z over the field; z_mont [num_cols, 8]; out [num_rows, 8]."""
+        if not self.vals:
+            return fr.zeros((num_rows,), z_mont.device)
+        d = self._device(z_mont.device)
+        starts, ends = self._boundaries("row", num_rows, z_mont.device)
+        return _k_segment_sums_perm(d["vals"], z_mont, d["cols"], d["perm_r"], starts, ends)
+
+    def multiply_vec(self, num_rows: int, num_cols: int, z: list[int], device=None) -> DensePolynomial:
+        assert len(z) == num_cols
+        return DensePolynomial(self.multiply_vec_device(num_rows, F.encode_fr(z, device=device)))
+
+    def compute_eval_table_sparse_device(self, evals_mont, num_cols: int) -> torch.Tensor:
+        """M^T @ evals: out[col] = sum_rows evals[row] * val (scatter-free)."""
+        if not self.vals:
+            return fr.zeros((num_cols,), evals_mont.device)
+        d = self._device(evals_mont.device)
+        starts, ends = self._boundaries("col", num_cols, evals_mont.device)
+        return _k_segment_sums_perm(d["vals"], evals_mont, d["rows"], d["perm_c"], starts, ends)
+
+    def evaluate_with_tables_device(self, eq_rx_mont, eq_ry_mont) -> int:
+        if not self.vals:
+            return 0
+        d = self._device(eq_rx_mont.device)
+        out = _k_gather_mul3(d["vals"], eq_rx_mont, eq_ry_mont, d["rows"], d["cols"])
+        return F.decode_fr(out.unsqueeze(0))[0]
+
+    def evaluate(self, rx: list[int], ry: list[int], device=None) -> int:
+        eq_rx = EqPolynomial(rx).evals_device(device)
+        eq_ry = EqPolynomial(ry).evals_device(device)
+        return self.evaluate_with_tables_device(eq_rx, eq_ry)
+
+    @staticmethod
+    def multi_evaluate(polys, rx: list[int], ry: list[int], device=None) -> list[int]:
+        eq_rx = EqPolynomial(rx).evals_device(device)
+        eq_ry = EqPolynomial(ry).evals_device(device)
+        return [p.evaluate_with_tables_device(eq_rx, eq_ry) for p in polys]

@@ -1,0 +1,83 @@
+"""Carry state between the JAX package and the port, as numpy arrays.
+
+The JAX package (``spartan_tpu``) holds field elements as 16 little-endian
+16-bit limbs in uint32 ``[..., 16]``; the port as 8 little-endian 32-bit
+limbs stored as int32 bit patterns ``[..., 8]``. Both use Montgomery form
+with R = 2^256, so a value converts by regrouping limb pairs and nothing
+else. Everything here takes and returns numpy arrays or plain Python data
+and never imports the JAX package, so callers (the cross-package tests)
+can hand the same generators, shapes and tables to both.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spartan_tpu_torch.core.commitments import MultiCommitGens
+from spartan_tpu_torch.core.mle import DensePolynomial
+from spartan_tpu_torch.core.r1cs import R1CSShape
+
+
+def limbs16_to_32(a16) -> np.ndarray:
+    """uint32 [..., 16] of 16-bit limbs -> int32 [..., 8] (32-bit limbs)."""
+    a = np.asarray(a16).astype(np.uint64) & 0xFFFF
+    w = a[..., 0::2] | (a[..., 1::2] << np.uint64(16))
+    return w.astype(np.uint32).view(np.int32)
+
+
+def limbs32_to_16(a32) -> np.ndarray:
+    """int32/uint32 [..., 8] of 32-bit limbs -> uint32 [..., 16]."""
+    w = np.asarray(a32)
+    w = (w.view(np.uint32) if w.dtype == np.int32 else w.astype(np.uint32)).astype(np.uint64)
+    out = np.stack((w & 0xFFFF, w >> np.uint64(16)), axis=-1)
+    return out.reshape(*w.shape[:-1], 2 * w.shape[-1]).astype(np.uint32)
+
+
+def to_port(a16, device="cpu") -> torch.Tensor:
+    """JAX-layout limbs -> port tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(limbs16_to_32(a16))).to(device)
+
+
+def from_port(t: torch.Tensor) -> np.ndarray:
+    """Port tensor -> JAX-layout uint32 [..., 16] limbs (host)."""
+    return limbs32_to_16(t.detach().to("cpu").contiguous().numpy())
+
+
+def affine_to_port(x16, y16, inf, device="cpu") -> tuple:
+    """JAX affine (x, y, inf) arrays -> port affine tensors."""
+    return (to_port(x16, device), to_port(y16, device),
+            torch.from_numpy(np.asarray(inf, dtype=bool).copy()).to(device))
+
+
+def multicommit_gens(G, h, device="cpu") -> MultiCommitGens:
+    """JAX ``MultiCommitGens`` tables -> the port's.
+
+    ``G`` = (x [n, 16], y [n, 16], inf [n]) and ``h`` = (x [16], y [16],
+    inf []) as numpy arrays (``np.asarray`` of the JAX gens' ``G``/``h``)."""
+    g = affine_to_port(*G, device=device)
+    hx, hy, hinf = affine_to_port(np.asarray(h[0])[None], np.asarray(h[1])[None],
+                                  np.asarray(h[2]).reshape(1), device=device)
+    return MultiCommitGens.from_points(g, (hx[0], hy[0], hinf[0]))
+
+
+def r1cs_shape(num_cons: int, num_vars: int, num_inputs: int, A, B, C) -> R1CSShape:
+    """Port ``R1CSShape`` from the JAX shape's entries.
+
+    Each of A, B, C is (rows, cols, vals): index arrays and canonical
+    values (the JAX ``SparseMatPolynomial``'s ``rows``, ``cols``, ``vals``)."""
+    def tups(m):
+        rows, cols, vals = m
+        return list(zip(np.asarray(rows).tolist(), np.asarray(cols).tolist(),
+                        [int(v) for v in vals]))
+
+    return R1CSShape(num_cons, num_vars, num_inputs, tups(A), tups(B), tups(C))
+
+
+def dense_poly(Z16, device="cpu") -> DensePolynomial:
+    """JAX ``DensePolynomial`` table [N, 16] -> the port's."""
+    return DensePolynomial(to_port(Z16, device))
+
+
+__all__ = ["limbs16_to_32", "limbs32_to_16", "to_port", "from_port", "affine_to_port",
+           "multicommit_gens", "r1cs_shape", "dense_poly"]

@@ -1,0 +1,142 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel source under ``spartan_tpu_torch/csrc/`` is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library with a plain
+C interface and loaded with ``ctypes``. Libraries are built on first use
+into ``build/kernels`` (see ``utils/cachedir.py``), keyed by a hash of the
+source, the shared header ``bn254.cuh`` and the flags, so an unchanged
+source is never rebuilt. ``build_all`` starts one ``nvcc`` per missing
+library, all at once, and waits for them together.
+
+Every wrapper that launches a kernel calls ``count(name)`` right there and
+nowhere else, so ``counts()`` says which kernels a run went through.
+Nothing here runs at import: every module must import on a machine without
+CUDA or ``nvcc``, where the kernel wrappers run their plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+from spartan_tpu_torch.utils.cachedir import subdir
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+HEADER = "bn254.cuh"
+SOURCES = {
+    "field_ew": "field_ew.cu",          # H1
+    "curve_ew": "curve_ew.cu",          # H2
+    "msm_bucket": "msm_bucket.cu",      # H3
+    "msm_weighted": "msm_weighted.cu",  # H4
+}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# exported C functions: name -> argument types (all return cudaError_t as int)
+_SIGNATURES = {
+    "field_ew": {"field_ew_launch": [_I, _I, _P, _L, _P, _L, _P, _L, _P]},
+    "curve_ew": {"curve_padd_launch": [_P] * 9 + [_L, _P],
+                 "curve_pdbl_launch": [_P] * 6 + [_L, _P]},
+    "msm_bucket": {"msm_bucket_launch": [_P] * 5 + [_I, _I, _L] + [_P] * 4},
+    "msm_weighted": {"msm_weighted_launch": [_P] * 3 + [_I, _I, _I, _L] + [_P] * 4},
+}
+
+_libs: dict = {}
+_launches = {name: 0 for name in SOURCES}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for fn in (SOURCES[name], HEADER):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def so_path(name: str) -> str:
+    return os.path.join(subdir("kernels"), f"{name}_{_digest(name)}.so")
+
+
+def build_all(names=None) -> dict:
+    """Build every missing library, one nvcc per source, in parallel.
+
+    Returns {name: seconds} for the libraries it built; raises with the
+    compiler's output if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not os.path.exists(so_path(n))]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        tmp = so_path(n)[:-3] + f".tmp{os.getpid()}.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT), tmp)
+    took, errors = {}, []
+    for n, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        took[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc {SOURCES[n]} failed:\n{out.decode(errors='replace')}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            continue
+        os.replace(tmp, so_path(n))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return took
+
+
+def lib(name: str):
+    """The loaded library of one kernel (built on first use)."""
+    h = _libs.get(name)
+    if h is None:
+        build_all([name])
+        h = ctypes.CDLL(so_path(name))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(h, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _libs[name] = h
+    return h
+
+
+def stream(device) -> int:
+    """Raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def count(name: str) -> None:
+    _launches[name] += 1
+
+
+def counts() -> dict:
+    return dict(_launches)
+
+
+def reset_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0

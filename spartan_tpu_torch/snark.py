@@ -1,0 +1,147 @@
+"""Public proof-system API of the port: Assignment, Instance, NIZK.
+
+Counterpart of the NIZK part of ``spartan_tpu/snark.py`` (reference
+src/snark.rs:20-287). The NIZK carries (rx, ry) so its verifier can
+evaluate A, B, C itself. The entry points run on the CUDA card unless the
+caller passes ``device="cpu"``: ``NIZKGens`` places its generators on the
+device, and ``NIZK.prove``/``verify`` run on the generators' device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from spartan_tpu_torch import device as DEV
+from spartan_tpu_torch.core.r1cs import R1CSShape
+from spartan_tpu_torch.core.r1csproof import R1CSGens, R1CSProof
+from spartan_tpu_torch.ops.fields_host import FR_MOD
+from spartan_tpu_torch.utils.errors import (
+    InvalidIndexError,
+    InvalidNumberOfInputsError,
+    InvalidScalarError,
+    ProofVerifyError,
+)
+from spartan_tpu_torch.utils.math import next_power_of_two
+from spartan_tpu_torch.utils.random_tape import RandomTape
+from spartan_tpu_torch.utils.transcript import Transcript
+
+
+@dataclass
+class Assignment:
+    """Variable/input assignment as canonical field ints (snark.rs:20-56)."""
+
+    assignment: list[int]
+
+    def __post_init__(self):
+        self.assignment = [v % FR_MOD for v in self.assignment]
+
+    def pad(self, length: int) -> "Assignment":
+        assert length > len(self.assignment)
+        return Assignment(self.assignment + [0] * (length - len(self.assignment)))
+
+
+class Instance:
+    """R1CSShape + digest (snark.rs:59-160)."""
+
+    def __init__(self, inst: R1CSShape):
+        self.inst = inst
+        self.digest = inst.get_digest()
+
+    @staticmethod
+    def new(num_cons: int, num_vars: int, num_inputs: int,
+            A: list[tuple[int, int, int]], B: list[tuple[int, int, int]],
+            C: list[tuple[int, int, int]]) -> "Instance":
+        """Pads dims to powers of two with the circom->Spartan column remap
+        (columns >= num_vars shift up by the padding, snark.rs:64-128)."""
+        num_vars_padded = next_power_of_two(max(num_vars, num_inputs + 1))
+        num_cons_padded = next_power_of_two(max(num_cons, 2))
+
+        def convert(tups):
+            out = []
+            for row, col, val in tups:
+                if row >= num_cons:
+                    raise InvalidIndexError("row out of range")
+                if col >= num_vars + 1 + num_inputs:
+                    raise InvalidIndexError("col out of range")
+                if not 0 <= val < FR_MOD:
+                    # Scalar::from_bytes rejects non-canonical values
+                    # (snark.rs:101: InvalidScalar) rather than reducing
+                    raise InvalidScalarError(f"value out of field at ({row},{col})")
+                adj = col + num_vars_padded - num_vars if col >= num_vars else col
+                out.append((row, adj, val))
+            return out
+
+        shape = R1CSShape(num_cons_padded, num_vars_padded, num_inputs,
+                          convert(A), convert(B), convert(C))
+        return Instance(shape)
+
+    @staticmethod
+    def from_shape(shape: R1CSShape) -> "Instance":
+        return Instance(shape)
+
+    def is_sat(self, vars_: Assignment, inputs: Assignment, device=None) -> bool:
+        if len(vars_.assignment) > self.inst.num_vars:
+            raise InvalidNumberOfInputsError("too many variables")
+        if len(inputs.assignment) != self.inst.num_inputs:
+            raise InvalidNumberOfInputsError("wrong number of inputs")
+        padded = vars_
+        if self.inst.num_vars > len(vars_.assignment):
+            padded = vars_.pad(self.inst.num_vars)
+        with DEV.use(device):
+            return self.inst.is_sat(padded.assignment, inputs.assignment)
+
+
+class NIZKGens:
+    """Generators of the NIZK, on ``device`` (the CUDA card by default;
+    raises if there is none and ``device`` is not given)."""
+
+    def __init__(self, num_cons: int, num_vars: int, num_inputs: int, device=None):
+        self.device = DEV.resolve(device)
+        num_vars_padded = next_power_of_two(max(num_vars, num_inputs + 1))
+        with DEV.use(self.device):
+            self.gens_r1cs_sat = R1CSGens(b"gens_r1cs_sat", num_cons, num_vars_padded)
+
+
+@dataclass
+class NIZK:
+    r1cs_sat_proof: R1CSProof
+    r: tuple[list[int], list[int]]
+
+    PROTOCOL = b"Spartan NIZK proof"
+
+    @staticmethod
+    def prove(inst: Instance, vars_: Assignment, input_: Assignment,
+              gens: NIZKGens, transcript: Transcript,
+              random_tape: RandomTape | None = None) -> "NIZK":
+        tape = random_tape if random_tape is not None else RandomTape(b"proof")
+        transcript.append_protocol_name(NIZK.PROTOCOL)
+        transcript.append_message(b"R1CSShapeDigest", inst.digest)
+
+        padded = vars_
+        if inst.inst.num_vars > len(vars_.assignment):
+            padded = vars_.pad(inst.inst.num_vars)
+
+        with DEV.use(gens.device):
+            proof, rx, ry = R1CSProof.prove(
+                inst.inst, padded.assignment, input_.assignment,
+                gens.gens_r1cs_sat, transcript, tape,
+            )
+        return NIZK(proof, (rx, ry))
+
+    def verify(self, inst: Instance, input_: Assignment,
+               transcript: Transcript, gens: NIZKGens) -> None:
+        transcript.append_protocol_name(NIZK.PROTOCOL)
+        transcript.append_message(b"R1CSShapeDigest", inst.digest)
+
+        claimed_rx, claimed_ry = self.r
+        with DEV.use(gens.device):
+            inst_evals = inst.inst.evaluate(claimed_rx, claimed_ry)
+
+            if len(input_.assignment) != inst.inst.num_inputs:
+                raise ProofVerifyError("wrong number of inputs")
+            rx, ry = self.r1cs_sat_proof.verify(
+                inst.inst.num_vars, inst.inst.num_cons, input_.assignment,
+                inst_evals, transcript, gens.gens_r1cs_sat,
+            )
+        if rx != claimed_rx or ry != claimed_ry:
+            raise ProofVerifyError("NIZK: claimed (rx, ry) do not match transcript")

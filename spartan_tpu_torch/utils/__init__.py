@@ -1,0 +1,1 @@
+"""Subpackage of spartan_tpu_torch."""

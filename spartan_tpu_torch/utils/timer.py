@@ -1,0 +1,94 @@
+"""Scoped phase timing (the reference's Timer, made actually useful).
+
+The reference's Timer output is dead code behind an undeclared feature flag
+(reference src/timer.rs:12-32, SURVEY.md §5); here profiling is a
+runtime switch: Timer.enable(). Timers nest, print
+on stop, and synchronise the CUDA device at start and stop (when CUDA is
+in use) so asynchronous kernels are attributed to the phase that queued
+them.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class Timer:
+    _enabled = False
+    _depth = 0
+    _records: list | None = None  # (depth, label, seconds) when collecting
+
+    def __init__(self, label: str):
+        self.label = label
+        _sync()
+        self.start = time.perf_counter()
+        self.depth = Timer._depth
+        Timer._depth += 1
+        if Timer._enabled:
+            print(f"{'  ' * (Timer._depth - 1)}* {label}", flush=True)
+
+    def stop(self) -> float:
+        _sync()
+        dt = time.perf_counter() - self.start
+        if Timer._enabled:
+            print(f"{'  ' * (Timer._depth - 1)}* {self.label} {dt * 1000:.1f} ms", flush=True)
+        if Timer._records is not None:
+            Timer._records.append((self.depth, self.label, dt))
+        Timer._depth = max(0, Timer._depth - 1)
+        return dt
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+    @staticmethod
+    def enable(on: bool = True) -> None:
+        Timer._enabled = on
+
+    @staticmethod
+    def collect(on: bool = True) -> None:
+        """Start/stop recording (depth, label, seconds) for every stop()."""
+        Timer._records = [] if on else None
+
+    @staticmethod
+    def records() -> list:
+        return list(Timer._records or [])
+
+    @staticmethod
+    def print(msg: str) -> None:
+        if Timer._enabled:
+            print(msg, flush=True)
+
+    # -- cross-call accumulators (for per-round loops where a Timer per
+    # -- iteration would spam the record stream) ---------------------------
+    _acc: dict = {}
+    _counts: dict = {}
+
+    @staticmethod
+    def acc(label: str, dt: float) -> None:
+        Timer._acc[label] = Timer._acc.get(label, 0.0) + dt
+
+    @staticmethod
+    def count(label: str, k: int = 1) -> None:
+        Timer._counts[label] = Timer._counts.get(label, 0) + k
+
+    @staticmethod
+    def acc_reset() -> None:
+        Timer._acc = {}
+        Timer._counts = {}
+
+    @staticmethod
+    def acc_records() -> list:
+        """[(label, seconds)] + [(label, count)] sorted by time desc."""
+        out = sorted(Timer._acc.items(), key=lambda kv: -kv[1])
+        return out + [(f"n:{k}", v) for k, v in sorted(Timer._counts.items())]

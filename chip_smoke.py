@@ -6,16 +6,25 @@
 Phases, each printing one JSON line (``"phase": ...``):
 
 1. device   the card's name and power limit (``nvidia-smi``);
-2. build    the four CUDA kernels built from ``spartan_tpu_torch/csrc``
+2. build    the eight CUDA kernels built from ``spartan_tpu_torch/csrc``
             with nvcc for sm_90a, one nvcc per source, in parallel;
 3. kernels  each kernel against its plain PyTorch version on the card at
-            the NIZK's shapes, bit for bit (tolerance 0: all arithmetic is
-            exact mod p), and the MSM against the host C MSM;
-4. nizk     NIZK.prove / verify of a synthetic 2^20-constraint instance on
-            the card, with per-phase times, every kernel's launch count in
-            the prove, and a corrupted proof rejected;
-5. cross    at 2^10, with the host-path thresholds lowered so the device
-            paths run, the proof made on the card equals the CPU one.
+            the shapes the 2^20 SNARK gives it, bit for bit (tolerance 0:
+            all arithmetic is exact mod p), and the MSM against the host C
+            MSM; each kernel's time beside its bound and its plain version's;
+4. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
+            (the SNARK below runs the same R1CSProof at 2^20);
+5. snark    SNARKGens, SNARK.encode / prove / verify of a synthetic
+            2^20-constraint instance on the card (the main path), with the
+            encode and prove phase times (each MSM's stages inside them,
+            as ``<phase>/msm.<stage>`` accumulators), proof bytes, peak
+            device memory,
+            every kernel's launch count in the prove (all eight must
+            launch), and a corrupted proof rejected;
+6. cross    with the host-path thresholds lowered so the device paths run,
+            the NIZK at 2^10 and the SNARK at 2^8 made on the card equal
+            the CPU ones, and the card's runs launched the kernels, the CPU
+            runs none.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -44,9 +53,20 @@ PADD_M, PADD_MIXED_M, PDBL_M = 12, 11, 8   # Montgomery products per formula
 
 FIELD_N = 1 << 20    # H1 check: the largest table the sumchecks fold
 POINTS_N = 1 << 16   # H2 check
-NIZK_LOG2 = 20       # constraints = variables, the keyless scale of bench_e2e_20.json;
-                     # its witness commit (H3/H4's shape) is 2^10 rows x 2^10 + 1 points
-CROSS_LOG2 = 10      # card-vs-CPU proof comparison
+SNARK_LOG2 = 20      # constraints = variables, the keyless scale of bench_e2e_20.json;
+                     # its witness commit is 2^10 rows x 2^10 + 1 points
+# its derefs commit: 2^12 rows x 2^13 + 1 points, of which 1024 rows are zero
+# and 1280 hold one repeated value
+DEREFS_ROWS, DEREFS_COLS, DEREFS_ZERO_REP = 1 << 12, 1 << 13, (1024, 1280)
+# the SNARK's largest sumcheck tables at 2^20: the ops product trees have
+# 2^22 leaves, so their leaf-layer round takes 12 instances of 2^21-entry
+# halves plus 6 dot-product halves of 2^21; ZK phase 1 folds 2^20-entry
+# tables, phase 2 2^21
+SC_PROD_N, SC_PAR, SC_SEQ = 1 << 21, 12, 6
+SC_ADD_N, SC_QUAD_N = 1 << 20, 1 << 21
+NIZK_LOG2 = 16       # the NIZK alone
+CROSS_LOG2 = 10      # card-vs-CPU NIZK comparison
+CROSS_SNARK_LOG2 = 8  # card-vs-CPU SNARK comparison
 
 SOURCES = {
     "field_ew": ("spartan_tpu_torch/csrc/field_ew.cu",
@@ -58,7 +78,21 @@ SOURCES = {
                    "spartan_tpu/ops/msm_pallas.py:65 (_prefix_kernel)"),
     "msm_weighted": ("spartan_tpu_torch/csrc/msm_weighted.cu",
                      "spartan_tpu/ops/msm_pallas.py:114 (_weighted_kernel)"),
+    "sc_fold": ("spartan_tpu_torch/csrc/sc_fold.cu",
+                "spartan_tpu/ops/pallas_sumcheck.py:545 (_k_lm_fold)"),
+    "sc_round_prod": ("spartan_tpu_torch/csrc/sc_round_prod.cu",
+                      "spartan_tpu/ops/pallas_sumcheck.py:573 (_k_lm_evals_prod; _k_step_prod "
+                      ":116, _k_step_prod_sharedC :140, _k_evals_prod :211)"),
+    "sc_round_additive": ("spartan_tpu_torch/csrc/sc_round_additive.cu",
+                          "spartan_tpu/ops/pallas_sumcheck.py:555 (_k_lm_evals_additive; "
+                          "_k_step_additive :164, _k_evals_additive :227)"),
+    "sc_round_quad": ("spartan_tpu_torch/csrc/sc_round_quad.cu",
+                      "spartan_tpu/ops/pallas_sumcheck.py:589 (_k_lm_evals_quad; _k_step_quad "
+                      ":189, _k_evals_quad :244)"),
 }
+# kernels the NIZK's prove runs (the product-layer kernel S2 is SNARK only)
+NIZK_KERNELS = ("field_ew", "curve_ew", "msm_bucket", "msm_weighted", "sc_fold",
+                "sc_round_additive", "sc_round_quad")
 
 
 def emit(obj) -> None:
@@ -103,10 +137,12 @@ def main() -> int:
                      "library_ms": None}
               for name, (src, rep) in SOURCES.items()}
     check_kernels(torch, dev, report)
-    counts = run_nizk(torch, NIZK_LOG2)
+    check_sumcheck_kernels(torch, dev, report)
+    run_nizk(torch, NIZK_LOG2)
+    counts = run_snark(torch, SNARK_LOG2)
     for name, n in counts.items():
         report[name]["launches"] = n
-    run_cross(torch, CROSS_LOG2)
+    run_cross(torch, CROSS_LOG2, CROSS_SNARK_LOG2)
 
     emit({"kernels": list(report.values())})
     print(smi, flush=True)
@@ -296,30 +332,22 @@ def check_kernels(torch, dev, report) -> None:
                                       "pdbl_bound_ms": dbms})
     emit({"phase": "kernels", "kernel": "curve_ew", **report["curve_ew"]})
 
-    # -- H3 + H4 at the 2^20 witness-commit shape: 1024 rows x 1025 points
+    # -- H3 + H4 at the two shapes of the 2^20 SNARK prove. The witness
+    # commit: 1024 rows x 1025 points, c = 7, one launch
     from spartan_tpu_torch import device as DEV
     from spartan_tpu_torch.pcs.hyrax import PolyCommitmentGens
 
-    rows = R = 1 << (NIZK_LOG2 // 2)
+    rows = R = 1 << (SNARK_LOG2 // 2)
     with DEV.use(dev):
-        gens = PolyCommitmentGens(NIZK_LOG2, b"gens_r1cs_sat")
+        gens = PolyCommitmentGens(SNARK_LOG2, b"gens_r1cs_sat")
     pts = gens.gens.gens_n.extended_points()
     sc = rand_canon(torch, F.FR, rows * (R + 1), gen).reshape(rows, R + 1, 8)
     sc[0, :5] = 0
     c = M.choose_window(R + 1)
     digits = M.window_digits(sc, c)                                  # [rows, N, W]
     W = digits.shape[-1]
-    dig = digits.permute(2, 0, 1).reshape(W * rows, R + 1).contiguous()
-    args = M.bucket_inputs(pts, dig, c)
-    buckets = M.launch_msm_bucket(*args)
-    seglen, nseg = M._segments((1 << c) - 1)
-    shares = M.launch_msm_weighted(buckets, seglen, nseg)
-    plain3, pms3 = cuda_once(torch, lambda: M.bucket_sums_plain(*args))
-    plain4, pms4 = cuda_once(torch, lambda: M.weighted_shares_plain(buckets, seglen, nseg))
-    err3, err4 = diff(torch, buckets, plain3), diff(torch, shares, plain4)
-    if err3 or err4:
-        raise AssertionError(f"H3/H4: kernel != plain ({err3}, {err4})")
-    del plain3, plain4
+    witness = msm_launch(torch, pts, digits.permute(2, 0, 1).reshape(W * rows, R + 1), c)
+    del digits
     # whole rows against the host C MSM
     out = M.msm(pts, sc)
     host_pts = gens.gens.gens_n.host_points()
@@ -331,30 +359,181 @@ def check_kernels(torch, dev, report) -> None:
         want = CH.msm([v % FR_MOD for v in sc_host[i * (R + 1):(i + 1) * (R + 1)]], host_pts)
         if got[i] != want:
             raise AssertionError(f"MSM row {row} disagrees with the host C MSM")
+    witness["commit_msm_ms"] = cuda_ms(torch, lambda: M.msm(pts, sc), 2)
+    del sc, gens, pts
+
+    # the derefs commit (DEREFS_ROWS x DEREFS_COLS + a zero blind, c = 10),
+    # where the prove spends most of its H3/H4 launches: one launch of
+    # M.CHUNK_BUDGET // N digit rows, from rows in the derefs table's
+    # proportions: zero rows, rows of one repeated value (every matrix's
+    # padding entries gather eq(r)[0]) and rows of random values
+    N = DEREFS_COLS + 1
+    with DEV.use(dev):
+        gens = PolyCommitmentGens((DEREFS_ROWS * DEREFS_COLS).bit_length() - 1, b"derefs")
+    pts = gens.gens.gens_n.extended_points()
+    c = M.choose_window(N)
+    W = -(-254 // c)
+    B = M.CHUNK_BUDGET // N
+    L = -(-B // W)
+    sc = rand_canon(torch, F.FR, L * N, gen).reshape(L, N, 8)
+    sc[:, -1] = 0
+    n_zero, n_rep = (round(L * k / DEREFS_ROWS) for k in DEREFS_ZERO_REP)
+    sc[:n_zero] = 0
+    sc[n_zero:n_zero + n_rep, :-1] = sc[n_zero:n_zero + n_rep, -2:-1]
+    digits = M.window_digits(sc, c)
+    del sc
+    derefs = msm_launch(torch, pts, digits.permute(2, 0, 1).reshape(W * L, N)[:B], c)
+    derefs["rows"] = {"zero": n_zero, "one_repeated_value": n_rep, "random": L - n_zero - n_rep}
+    del digits, gens, pts
+
+    for name in ("msm_bucket", "msm_weighted"):
+        main, wit = derefs[name], witness[name]
+        report[name].update(max_abs_err=0, match=True,
+                            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                            shape=f"derefs commit launch: {main['shape']}",
+                            detail={"derefs_launch": derefs, "witness_commit": wit})
+        emit({"phase": "kernels", "kernel": name, **report[name]})
+
+
+def msm_launch(torch, pts, dig, c: int) -> dict:
+    """H3 and H4 on one launch's digit rows [B, N] against their plain
+    versions, bit for bit; their times (mean of 3 wrapper calls; the plain
+    versions once) and bounds."""
+    from spartan_tpu_torch.ops import msm as M
+
+    args = M.bucket_inputs(pts, dig, c)
+    buckets = M.launch_msm_bucket(*args)
+    seglen, nseg = M._segments((1 << c) - 1)
+    shares = M.launch_msm_weighted(buckets, seglen, nseg)
+    plain, pms3 = cuda_once(torch, lambda: M.bucket_sums_plain(*args))
+    err3 = diff(torch, buckets, plain)
+    del plain
+    plain, pms4 = cuda_once(torch, lambda: M.weighted_shares_plain(buckets, seglen, nseg))
+    err4 = diff(torch, shares, plain)
+    del plain
+    if err3 or err4:
+        raise AssertionError(f"H3/H4: kernel != plain ({err3}, {err4})")
     ms3 = cuda_ms(torch, lambda: M.launch_msm_bucket(*args), 3)
     ms4 = cuda_ms(torch, lambda: M.launch_msm_weighted(buckets, seglen, nseg), 3)
-    msm_ms = cuda_ms(torch, lambda: M.msm(pts, sc), 2)
-    B, nb, N = dig.shape[0], (1 << c) - 1, R + 1
+    (B, N), nb = dig.shape, (1 << c) - 1
+    runs = args[4] - args[3]
     # H3's function: a bucket of k points is k - 1 mixed additions
-    adds = int((args[4] - args[3] - 1).clamp(min=0).sum().item())
+    adds = int((runs - 1).clamp(min=0).sum().item())
     b3, b3by = bound(N * 64 + B * N * 4 + B * nb * 8 + B * nb * 96,
                      adds * PADD_MIXED_M * MONT)
     # H4's function, sum_b b * B_b per row, by running and total sums:
     # 2 (nb - 1) complete additions per row, one projective point out
     b4, b4by = bound(B * nb * 96 + B * 96, B * 2 * (nb - 1) * PADD_M * MONT)
-    shape = f"{rows} rows x {N} points, c={c}, {B} digit rows"
-    report["msm_bucket"].update(max_abs_err=0, match=True, ms=ms3, plain_ms=pms3, bound_ms=b3,
-                                bound_by=b3by, shape=shape, mixed_adds=adds)
-    report["msm_weighted"].update(max_abs_err=0, match=True, ms=ms4, plain_ms=pms4, bound_ms=b4,
-                                  bound_by=b4by, shape=f"{B} rows x {nb} buckets, "
-                                  f"{nseg} segments of {seglen}",
-                                  witness_commit_msm_ms=msm_ms)
-    emit({"phase": "kernels", "kernel": "msm_bucket", **report["msm_bucket"]})
-    emit({"phase": "kernels", "kernel": "msm_weighted", **report["msm_weighted"]})
+    return {"msm_bucket": {"ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": b3by,
+                           "shape": f"{B} digit rows x {N} points, c={c}",
+                           "mixed_adds": adds, "longest_run": int(runs.max().item())},
+            "msm_weighted": {"ms": ms4, "plain_ms": pms4, "bound_ms": b4, "bound_by": b4by,
+                             "shape": f"{B} rows x {nb} buckets, {nseg} segments of {seglen}"}}
+
+
+def check_sumcheck_kernels(torch, dev, report) -> None:
+    """S1-S4 against their plain versions at the 2^20 SNARK's largest
+    round shapes, every mode; each kernel's fused step timed as raw C
+    launches on operands set up once."""
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.ops import sumcheck_kernels as SK
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    stream = K.stream(dev)
+    r = rand_canon(torch, F.FR, 8, gen)[5]
+
+    def tables(k, n):
+        return [rand_canon(torch, F.FR, n, gen) for _ in range(k)]
+
+    def check(name, got, want) -> int:
+        err = max((diff(torch, a, b) for a, b in zip(_flat(got), _flat(want))), default=0)
+        if err or len(_flat(got)) != len(_flat(want)):
+            raise AssertionError(f"{name}: kernel != plain ({err})")
+        return err
+
+    def record(name, shape, raw, pms, nbytes, nmuls, modes):
+        timed = launch_ms(torch, name, raw, launches=20, repeats=5)
+        bms, by = bound(nbytes, nmuls)
+        report[name].update(max_abs_err=0, match=True, ms=timed["ms"],
+                            ms_spread=[timed["min_ms"], timed["max_ms"]], plain_ms=pms,
+                            bound_ms=bms, bound_by=by, shape=shape, modes_checked=modes)
+        emit({"phase": "kernels", "kernel": name, **report[name]})
+
+    # -- S2: the ops trees' leaf-layer round, 12 instances on the shared
+    # eq table and 6 dot-product halves with their own C
+    n, nP, nS = SC_PROD_N, SC_PAR, SC_SEQ
+    I = nP + nS
+    A, B = tables(I, n), tables(I, n)
+    Cs = tables(nS, n)
+    (Cp,) = tables(1, n)
+    check("sc_round_prod evals", SK.prod_evals(A, B, [Cp] * nP + Cs),
+          SK.prod_evals_plain(A, B, [Cp] * nP + Cs))
+    (Cpf,) = SK.fold([Cp], r)
+    want, pms1 = cuda_once(torch, lambda: SK.fold_plain(Cp, r))
+    check("sc_fold", [Cpf], [want])
+    fold_c = [False] * nP + [True] * nS
+    Cm = [Cpf] * nP + Cs
+    got = SK.prod_step(A, B, Cm, r, fold_c)
+    want, pms2 = cuda_once(torch, lambda: SK.prod_step_plain(A, B, Cm, r, fold_c))
+    check("sc_round_prod step", got, want)
+    del want
+    q = n // 4
+    nb = SK._nblocks(q, I)
+    part = torch.empty((I, nb, 3, 8), dtype=torch.int32, device=dev)
+    lib2 = K.lib("sc_round_prod")
+    ptrs2 = SK._ptrs(A + B + Cm + got[0] + got[1] + got[2])
+    record("sc_round_prod", f"fold + evals, {nP} instances on a shared folded C + {nS} "
+           f"with their own C, {n} entries each",
+           lambda: lib2.sc_round_prod_launch(1, ptrs2, I, r.data_ptr(), q, nb,
+                                             part.data_ptr(), stream),
+           pms2, 32 * (2 * n * I + n // 2 + nS * n + n // 2 * (2 * I + nS)),
+           MONT * (nP * 5 * n // 2 + nS * 3 * n),
+           ["evals only", "fold + evals, shared C", "fold + evals, own C"])
+    del got, Cm, Cs, A, B
+    lib1 = K.lib("sc_fold")
+    ptrs1 = SK._ptrs([Cp, Cpf])
+    nb1 = SK._nblocks(n // 2, 1)
+    record("sc_fold", f"one {n}-entry table (the shared eq table's fold)",
+           lambda: lib1.sc_fold_launch(ptrs1, 1, r.data_ptr(), n // 2, nb1, stream),
+           pms1, 48 * n, MONT * n // 2, ["fold"])
+    del Cp, Cpf
+
+    # -- S3 / S4: ZK phase 1 at 2^20 entries, phase 2 at 2^21
+    for name, n, k, ne, evals, step, evals_plain, step_plain, muls in (
+            ("sc_round_additive", SC_ADD_N, 4, 3, SK.additive_evals, SK.additive_step,
+             SK.additive_evals_plain, SK.additive_step_plain, 7 * SC_ADD_N // 2),
+            ("sc_round_quad", SC_QUAD_N, 2, 2, SK.quad_evals, SK.quad_step,
+             SK.quad_evals_plain, SK.quad_step_plain, 3 * SC_QUAD_N // 2)):
+        T = tables(k, n)
+        check(f"{name} evals", [evals(*T)], [evals_plain(*T)])
+        got = step(*T, r)
+        want, pms = cuda_once(torch, lambda: step_plain(*T, r))
+        check(f"{name} step", got, want)
+        del want
+        q = n // 4
+        nb = SK._nblocks(q, 1)
+        part = torch.empty((1, nb, ne, 8), dtype=torch.int32, device=dev)
+        lib = K.lib(name)
+        ptrs = SK._ptrs(T + list(got[:k]))
+        fn = getattr(lib, f"{name}_launch")
+        record(name, f"fold + evals, {k} tables of {n} entries",
+               lambda: fn(1, ptrs, r.data_ptr(), q, nb, part.data_ptr(), stream),
+               pms, 32 * k * n * 3 // 2, MONT * muls,
+               ["evals only", "fold + evals"])
+        del T, got
+
+
+def _flat(x) -> list:
+    """Tensors of a (nested) wrapper result, Nones dropped."""
+    if isinstance(x, (list, tuple)):
+        return [t for item in x for t in _flat(item)]
+    return [] if x is None else [x]
 
 
 # ---------------------------------------------------------------------------
-# the NIZK on the card
+# the NIZK and the SNARK on the card
 # ---------------------------------------------------------------------------
 
 def run_nizk(torch, log2: int) -> dict:
@@ -390,9 +569,9 @@ def run_nizk(torch, log2: int) -> dict:
     acc = [{"label": lbl, "v": v} for lbl, v in Timer.acc_records()]
     Timer.collect(False)
     peak = torch.cuda.max_memory_allocated()
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in NIZK_KERNELS if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched by the prove: {missing}")
+        raise AssertionError(f"kernels not launched by the NIZK prove: {missing}")
 
     raw = serialize(proof)
     t = time.perf_counter()
@@ -414,48 +593,154 @@ def run_nizk(torch, log2: int) -> dict:
           "proof_bytes": len(raw), "proof_sha256": hashlib.sha256(raw).hexdigest(),
           "peak_device_bytes": peak, "launches": counts, "corrupted_rejected": True,
           "prove_phases": phases, "prove_acc": acc})
+
+
+def run_snark(torch, log2: int) -> dict:
+    """The main path: encode, prove, verify a 2^log2 SNARK on the card.
+    Returns every kernel's launch count in the prove."""
+    from spartan_tpu_torch.io.keyless_bench import synthetic
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.ops.fields_host import FR_MOD
+    from spartan_tpu_torch.snark import SNARK, SNARKGens
+    from spartan_tpu_torch.utils.errors import SpartanError
+    from spartan_tpu_torch.utils.random_tape import RandomTape
+    from spartan_tpu_torch.utils.serialization import deserialize, serialize
+    from spartan_tpu_torch.utils.timer import Timer
+    from spartan_tpu_torch.utils.transcript import Transcript
+
+    t = time.perf_counter()
+    inst, vars_, inputs, nnz = synthetic(log2)
+    setup_s = time.perf_counter() - t
+    n = inst.inst.num_cons
+    t = time.perf_counter()
+    gens = SNARKGens(n, n, 1, nnz)
+    gens_s = time.perf_counter() - t
+
+    def phases():
+        return [{"depth": d, "label": lbl, "s": s} for d, lbl, s in Timer.records()]
+
+    def accumulators():
+        return [{"label": lbl, "v": v} for lbl, v in Timer.acc_records()]
+
+    torch.cuda.reset_peak_memory_stats()
+    Timer.collect()
+    Timer.acc_reset()
+    t = time.perf_counter()
+    comm, decomm = SNARK.encode(inst, gens)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t
+    encode_phases = phases()
+    encode_acc = accumulators()
+    encode_peak = torch.cuda.max_memory_allocated()
+
+    K.reset_counts()
+    Timer.collect()
+    Timer.acc_reset()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    proof = SNARK.prove(inst, comm, decomm, vars_, inputs, gens, Transcript(b"chip_smoke"),
+                        RandomTape(b"chip_smoke", seed=bytes([5]) * 32))
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t
+    counts = K.counts()
+    prove_phases = phases()
+    acc = accumulators()
+    Timer.collect(False)
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the SNARK prove: {missing}")
+
+    raw = serialize(proof)
+    t = time.perf_counter()
+    proof.verify(comm, inputs, Transcript(b"chip_smoke"), gens)
+    verify_s = time.perf_counter() - t
+
+    bad = deserialize(SNARK, raw)
+    a, b, c = bad.inst_evals
+    bad.inst_evals = ((a + 1) % FR_MOD, b, c)
+    try:
+        bad.verify(comm, inputs, Transcript(b"chip_smoke"), gens)
+    except (SpartanError, AssertionError):
+        rejected = True
+    else:
+        rejected = False
+    if not rejected:
+        raise AssertionError("a corrupted SNARK proof was accepted")
+    emit({"phase": "snark", "log2": log2, "num_cons": n, "num_nz_entries": nnz,
+          "setup_s": setup_s, "gens_s": gens_s, "encode_s": encode_s, "prove_s": prove_s,
+          "verify_s": verify_s, "proof_bytes": len(raw),
+          "proof_sha256": hashlib.sha256(raw).hexdigest(),
+          "encode_peak_device_bytes": encode_peak, "prove_peak_device_bytes": peak,
+          "launches": counts, "corrupted_rejected": True,
+          "encode_phases": encode_phases, "encode_acc": encode_acc,
+          "prove_phases": prove_phases, "prove_acc": acc})
     return counts
 
 
-def run_cross(torch, log2: int) -> None:
-    """Device-path proof on the card == the same proof on the CPU."""
+def run_cross(torch, log2: int, snark_log2: int) -> None:
+    """Device-path proofs on the card == the same proofs on the CPU."""
     from spartan_tpu_torch.core import hostpath as HP
     from spartan_tpu_torch.io.keyless_bench import synthetic
     from spartan_tpu_torch.ops import field as F
     from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops import msm as M
-    from spartan_tpu_torch.snark import NIZK, NIZKGens
+    from spartan_tpu_torch.snark import NIZK, SNARK, NIZKGens, SNARKGens
     from spartan_tpu_torch.utils.random_tape import RandomTape
     from spartan_tpu_torch.utils.serialization import serialize
     from spartan_tpu_torch.utils.transcript import Transcript
 
-    saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N)
-    HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = \
-        2, 4, 0, 4, 0
-    try:
+    def nizk(device):
         inst, vars_, inputs, _ = synthetic(log2, seed=1)
         n = inst.inst.num_cons
-        out = {}
-        for device in ("cuda", "cpu"):
-            K.reset_counts()
-            t = time.perf_counter()
-            gens = NIZKGens(n, n, 1, device=device)
-            proof = NIZK.prove(inst, vars_, inputs, gens, Transcript(b"cross"),
-                               RandomTape(b"cross", seed=bytes([9]) * 32))
-            out[device] = (serialize(proof), time.perf_counter() - t, K.counts())
-            proof.verify(inst, inputs, Transcript(b"cross"), gens)
-    finally:
-        HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = saved
-    same = out["cuda"][0] == out["cpu"][0]
-    emit({"phase": "cross", "log2": log2, "identical": same,
-          "sha256": hashlib.sha256(out["cuda"][0]).hexdigest(),
-          "cuda_s": out["cuda"][1], "cpu_s": out["cpu"][1],
-          "cuda_launches": out["cuda"][2], "cpu_launches": out["cpu"][2]})
-    if not same:
-        raise AssertionError("the card's proof differs from the CPU proof")
-    # the card's run went through every kernel, the CPU run through none
-    if min(out["cuda"][2].values()) <= 0 or max(out["cpu"][2].values()) > 0:
-        raise AssertionError(f"cross check launches: {out['cuda'][2]}, {out['cpu'][2]}")
+        gens = NIZKGens(n, n, 1, device=device)
+        proof = NIZK.prove(inst, vars_, inputs, gens, Transcript(b"cross"),
+                           RandomTape(b"cross", seed=bytes([9]) * 32))
+        proof.verify(inst, inputs, Transcript(b"cross"), gens)
+        return proof
+
+    def snark(device):
+        inst, vars_, inputs, nnz = synthetic(snark_log2, seed=1)
+        n = inst.inst.num_cons
+        gens = SNARKGens(n, n, 1, nnz, device=device)
+        comm, decomm = SNARK.encode(inst, gens)
+        proof = SNARK.prove(inst, comm, decomm, vars_, inputs, gens, Transcript(b"cross"),
+                            RandomTape(b"cross", seed=bytes([9]) * 32))
+        proof.verify(comm, inputs, Transcript(b"cross"), gens)
+        return comm, proof
+
+    # every device path at these sizes; the SNARK keeps the small MSMs of
+    # its bullet reductions on the host C backend (their plain versions
+    # on the CPU would take minutes), its row commits go to the device
+    lowered = {"nizk": (2, 4, 0, 4, 0), "snark": (2, HP.HOST_MSM_N, 0, M.LADDER_N, 0)}
+    for what, fn in (("nizk", nizk), ("snark", snark)):
+        saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N,
+                 F._HOST_CONVERT_N)
+        HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = \
+            lowered[what]
+        try:
+            out = {}
+            for device in ("cuda", "cpu"):
+                K.reset_counts()
+                t = time.perf_counter()
+                res = fn(device)
+                torch.cuda.synchronize()
+                out[device] = (serialize(res), time.perf_counter() - t, K.counts())
+        finally:
+            HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = \
+                saved
+        same = out["cuda"][0] == out["cpu"][0]
+        emit({"phase": "cross", "what": what, "log2": log2 if what == "nizk" else snark_log2,
+              "identical": same, "sha256": hashlib.sha256(out["cuda"][0]).hexdigest(),
+              "cuda_s": out["cuda"][1], "cpu_s": out["cpu"][1],
+              "cuda_launches": out["cuda"][2], "cpu_launches": out["cpu"][2]})
+        if not same:
+            raise AssertionError(f"{what}: the card's proof differs from the CPU proof")
+        # the card's run went through the kernels, the CPU run through none
+        need = NIZK_KERNELS if what == "nizk" else tuple(SOURCES)
+        if min(out["cuda"][2][k] for k in need) <= 0 or max(out["cpu"][2].values()) > 0:
+            raise AssertionError(f"{what} cross check launches: {out['cuda'][2]}, "
+                                 f"{out['cpu'][2]}")
 
 
 if __name__ == "__main__":

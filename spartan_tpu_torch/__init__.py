@@ -2,13 +2,13 @@
 
 The port of ``spartan_tpu`` to an NVIDIA H100. It mirrors the JAX
 package's module layout and produces byte-identical proofs; its field,
-curve and MSM kernels are hand-written CUDA (``csrc/``), built with
-``nvcc`` for ``sm_90a`` on first use. Entry points run on the CUDA card
+curve, MSM and sumcheck-round kernels are hand-written CUDA (``csrc/``),
+built with ``nvcc`` for ``sm_90a`` on first use. Entry points run on the CUDA card
 unless given ``device="cpu"``, where every kernel wrapper runs its plain
 PyTorch version. Nothing here imports JAX or ``spartan_tpu``.
 
 Public API (lazy, so importing the package stays cheap):
-    Assignment, Instance, NIZKGens, NIZK, Transcript, RandomTape
+    Assignment, Instance, NIZKGens, NIZK, SNARKGens, SNARK, Transcript, RandomTape
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ _EXPORTS = {
     "Instance": ("spartan_tpu_torch.snark", "Instance"),
     "NIZKGens": ("spartan_tpu_torch.snark", "NIZKGens"),
     "NIZK": ("spartan_tpu_torch.snark", "NIZK"),
+    "SNARKGens": ("spartan_tpu_torch.snark", "SNARKGens"),
+    "SNARK": ("spartan_tpu_torch.snark", "SNARK"),
     "Transcript": ("spartan_tpu_torch.utils.transcript", "Transcript"),
     "RandomTape": ("spartan_tpu_torch.utils.random_tape", "RandomTape"),
 }

@@ -28,6 +28,7 @@ from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import msm as MSM
 from spartan_tpu_torch.ops.fields_host import FR_MOD
 from spartan_tpu_torch.ops.limbs import to_numpy, to_tensor
+from spartan_tpu_torch.utils.timer import Timer
 
 
 def _gen_scalars_from_label(label: bytes, count: int) -> list[int]:
@@ -242,7 +243,9 @@ def commit_rows(Z_mont, blinds_mont, gens: MultiCommitGens):
     parts = []
     for start in range(0, L, rows_per):
         stop = min(start + rows_per, L)
-        sc = torch.cat((Z_mont[start:stop], blinds_mont[start:stop].unsqueeze(1)), dim=1)
-        parts.append(MSM.msm(pts, F.fr.from_mont(sc)))
+        with Timer.stage("msm.from_mont", Z_mont.device):
+            sc = F.fr.from_mont(torch.cat((Z_mont[start:stop],
+                                           blinds_mont[start:stop].unsqueeze(1)), dim=1))
+        parts.append(MSM.msm(pts, sc))
     return tuple(torch.cat([p[i] for p in parts], dim=0) for i in range(3))
 

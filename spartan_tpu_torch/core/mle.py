@@ -1,11 +1,12 @@
 """Dense multilinear polynomials + eq polynomial on the device.
 
 Counterpart of ``spartan_tpu/core/mle.py`` (the reference's
-hyrax.rs:156-384): evaluation tables are [N, 8] Montgomery limb tensors;
-folds, eq-table builds, matrix-bound products and dot products compose the
-H1 field kernel with exact plain-torch sums. Scalars crossing the host
-boundary (transcript values, claimed evaluations) are Python ints. Tables
-of at most ``hostpath.HOST_N`` entries are evaluated on the host.
+hyrax.rs:156-403): evaluation tables are [N, 8] Montgomery limb tensors;
+eq-table builds, matrix-bound products and dot products compose the H1
+field kernel with exact plain-torch sums, and the top-variable fold is
+kernel S1. Scalars crossing the host boundary (transcript values, claimed
+evaluations) are Python ints. Tables of at most ``hostpath.HOST_N`` entries
+are evaluated on the host.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ import torch
 
 from spartan_tpu_torch.core import hostpath as HP
 from spartan_tpu_torch.ops import field as F
+from spartan_tpu_torch.ops import sumcheck_kernels as SK
 from spartan_tpu_torch.ops.fields_host import FR_MOD
-from spartan_tpu_torch.utils.math import log_2
+from spartan_tpu_torch.utils.math import log_2, next_power_of_two, pow2
 
 fr = F.fr
 
@@ -58,6 +60,11 @@ def decode_scalar(arr) -> int:
     return F.decode_fr(arr.reshape(-1, F.NUM_LIMBS))[0]
 
 
+def first_rows(arrs):
+    """[K, 8]: row 0 of each table (the claims a sumcheck ends with)."""
+    return torch.stack([a[0] for a in arrs], dim=0)
+
+
 def decode_tables(arrs) -> list[list[int]]:
     """Decode K equal-length [n, 8] tables with one device->host copy."""
     if not arrs:
@@ -80,8 +87,48 @@ class DensePolynomial:
     def from_ints(vals: list[int], device=None) -> "DensePolynomial":
         return DensePolynomial(F.encode_fr(vals, device=device))
 
+    @staticmethod
+    def from_usize(vals, device=None) -> "DensePolynomial":
+        """Small non-negative ints (numpy array or list) -> MLE, encoded on
+        the device (no Python ints)."""
+        return DensePolynomial(F.encode_small_uints(vals, device=device))
+
     def to_ints(self) -> list[int]:
         return F.decode_fr(self.Z)
+
+    def clone(self) -> "DensePolynomial":
+        return DensePolynomial(self.Z)
+
+    def split(self, idx: int):
+        assert idx < self.len
+        return DensePolynomial(self.Z[:idx]), DensePolynomial(self.Z[idx: 2 * idx])
+
+    def extend(self, other: "DensePolynomial") -> None:
+        assert other.len == self.len
+        self.rebind(torch.cat((self.Z, other.Z), dim=0))
+
+    @staticmethod
+    def merge(polys) -> "DensePolynomial":
+        """Concatenate tables, zero-pad to a power of two (hyrax.rs:237-247)."""
+        Zs = [p.Z for p in polys]
+        total = sum(z.shape[0] for z in Zs)
+        pad = next_power_of_two(total) - total
+        if pad:
+            Zs.append(torch.zeros((pad, F.NUM_LIMBS), dtype=torch.int32, device=Zs[0].device))
+        return DensePolynomial(torch.cat(Zs, dim=0))
+
+    def bound_poly_var_top(self, r) -> None:
+        """Bind the top variable to r (an int or [8] limbs): kernel S1."""
+        r_dev = r if isinstance(r, torch.Tensor) else encode_scalar(r, self.Z.device)
+        (Z,) = SK.fold([self.Z], r_dev)
+        self.rebind(Z)
+
+    def bound_poly_var_bot(self, r) -> None:
+        """Bind the bottom variable: Z'[i] = Z[2i] + r (Z[2i+1] - Z[2i])
+        (hyrax.rs:206-214)."""
+        r_dev = r if isinstance(r, torch.Tensor) else encode_scalar(r, self.Z.device)
+        ev, od = self.Z[0::2], self.Z[1::2]
+        self.rebind(fr.add(ev, fr.mul(r_dev, fr.sub(od, ev))))
 
     def rebind(self, Z) -> None:
         """Adopt an externally-folded table (sumcheck round steps)."""
@@ -95,6 +142,10 @@ class DensePolynomial:
             return HP.evaluate_mle(self.to_ints(), r)
         chis = EqPolynomial(r).evals_device(self.Z.device)
         return decode_scalar(k_dot(self.Z, chis))
+
+    def evaluate_device(self, r_dev):
+        """r_dev [ell, 8] Montgomery -> [8] Montgomery (stays on the device)."""
+        return k_dot(self.Z, k_eq_evals(r_dev, self.num_vars))
 
     def bound(self, L_dev, L_size: int, R_size: int):
         """L*Z matrix product, returns [R, 8]; chunked over the L axis when
@@ -116,6 +167,15 @@ class DensePolynomial:
     def first(self) -> int:
         """Z[0] as host int — the post-sumcheck claim readout."""
         return self.item(0)
+
+
+def batch_evaluate(polys: list[DensePolynomial], r: list[int]) -> list[int]:
+    """Evaluate equal-length MLEs at one point, sharing one eq table; one
+    dot product per table, so no [K, N] stack materializes."""
+    if not polys:
+        return []
+    chis = EqPolynomial(r).evals_device(polys[0].Z.device)
+    return F.decode_fr(torch.stack([k_dot(p.Z, chis) for p in polys], dim=0))
 
 
 class EqPolynomial:
@@ -147,6 +207,18 @@ class EqPolynomial:
         left, _ = EqPolynomial.compute_factored_lens(len(self.r))
         return (EqPolynomial(self.r[:left]).evals_device(device),
                 EqPolynomial(self.r[left:]).evals_device(device))
+
+
+class IdentityPolynomial:
+    """MLE of the index function (hyrax.rs:387-403)."""
+
+    def __init__(self, size_point: int):
+        self.size_point = size_point
+
+    def evaluate(self, r: list[int]) -> int:
+        n = len(r)
+        assert n == self.size_point
+        return sum(pow2(n - i - 1) * r[i] for i in range(n)) % FR_MOD
 
 
 def compute_dotproduct(a: list[int], b: list[int]) -> int:

@@ -2,8 +2,8 @@
 
 Counterpart of the shape part of ``spartan_tpu/core/r1cs.py`` (reference
 r1cs.rs:23-160): the shape, satisfiability check, MLE evaluation, digest,
-and the phase-1/phase-2 table builders. The SNARK-mode commitment and eval
-proof are not ported yet.
+and the phase-1/phase-2 table builders; and the SNARK-mode commitment to
+A, B, C with its evaluation proof (r1cs.rs:263-491), Hyrax only.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 from spartan_tpu_torch.core.mle import DensePolynomial
 from spartan_tpu_torch.core.sparse_mlpoly import SparseMatPolynomial
 from spartan_tpu_torch.ops import field as F
-from spartan_tpu_torch.utils.math import is_power_of_two, log_2
+from spartan_tpu_torch.utils.math import is_power_of_two, log_2, next_power_of_two
 
 fr = F.fr
 
@@ -112,3 +112,90 @@ class R1CSShape:
             self.B.compute_eval_table_sparse_device(evals_mont, num_cols),
             self.C.compute_eval_table_sparse_device(evals_mont, num_cols),
         )
+
+    def commit(self, gens: "R1CSCommitmentGens"):
+        """SNARK-mode preprocessing commitment (r1cs.rs:375-400)."""
+        from spartan_tpu_torch.core import sparse_mlpoly_full as full
+
+        comm, dense = full.multi_commit([self.A, self.B, self.C], gens.gens)
+        return (R1CSCommitment(self.num_cons, self.num_vars, self.num_inputs, comm),
+                R1CSDecommitment(dense))
+
+
+class R1CSCommitmentGens:
+    """Generators of the SNARK-mode matrix commitment (r1cs.rs:263-343)."""
+
+    def __init__(self, label: bytes, num_cons: int, num_vars: int,
+                 num_nz_entries: int, pcs: str = "hyrax"):
+        from spartan_tpu_torch.core.sparse_mlpoly_full import SparseMatPolyCommitmentGens
+
+        nx = log_2(num_cons)
+        ny = log_2(2 * num_vars)
+        # nnz floored at 2 as in SparseMatPolynomial.get_num_nz_entries
+        self.gens = SparseMatPolyCommitmentGens(
+            label, nx, ny, max(2, next_power_of_two(num_nz_entries)), 3, pcs=pcs)
+
+
+def _sparse_commitment_spec(_ctx):
+    from spartan_tpu_torch.core.sparse_mlpoly_full import SparseMatPolyCommitment
+
+    return SparseMatPolyCommitment
+
+
+def _sparse_eval_proof_spec(_ctx):
+    from spartan_tpu_torch.core.sparse_mlpoly_full import SparseMatPolyEvalProof
+
+    return SparseMatPolyEvalProof
+
+
+class R1CSCommitment:
+    """Commitment to (A, B, C) (r1cs.rs:345-363)."""
+
+    DESER_SPECS = ["int", "int", "int", _sparse_commitment_spec]
+
+    def __init__(self, num_cons: int, num_vars: int, num_inputs: int, comm):
+        self.num_cons = num_cons
+        self.num_vars = num_vars
+        self.num_inputs = num_inputs
+        self.comm = comm
+
+    def append_to_transcript(self, _label: bytes, transcript) -> None:
+        transcript.append_u64(b"num_cons", self.num_cons)
+        transcript.append_u64(b"num_vars", self.num_vars)
+        transcript.append_u64(b"num_inputs", self.num_inputs)
+        self.comm.append_to_transcript(b"comm", transcript)
+
+    def serialize_fields(self):
+        return [self.num_cons, self.num_vars, self.num_inputs, self.comm]
+
+
+class R1CSDecommitment:
+    """Prover-side dense representation (r1cs.rs:365-370)."""
+
+    def __init__(self, dense):
+        self.dense = dense
+
+
+class R1CSEvalProof:
+    """Wraps SparseMatPolyEvalProof (r1cs.rs:416-491)."""
+
+    DESER_SPECS = [_sparse_eval_proof_spec]
+
+    def __init__(self, proof):
+        self.proof = proof
+
+    def serialize_fields(self):
+        return [self.proof]
+
+    @staticmethod
+    def prove(decomm: R1CSDecommitment, rx: list[int], ry: list[int],
+              evals: tuple[int, int, int], gens: R1CSCommitmentGens,
+              transcript, random_tape) -> "R1CSEvalProof":
+        from spartan_tpu_torch.core.sparse_mlpoly_full import SparseMatPolyEvalProof
+
+        return R1CSEvalProof(SparseMatPolyEvalProof.prove(
+            decomm.dense, rx, ry, list(evals), gens.gens, transcript, random_tape))
+
+    def verify(self, comm: R1CSCommitment, rx: list[int], ry: list[int],
+               evals: tuple[int, int, int], gens: R1CSCommitmentGens, transcript) -> None:
+        self.proof.verify(comm.comm, rx, ry, list(evals), gens.gens, transcript)

@@ -22,6 +22,7 @@ import torch
 from spartan_tpu_torch.core.mle import DensePolynomial, EqPolynomial
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops.fields_host import FR_MOD
+from spartan_tpu_torch.utils.math import next_power_of_two
 
 fr = F.fr
 
@@ -80,6 +81,21 @@ class SparseMatPolynomial:
                 "perm_c": t(self._order_c),
             }
         return self._dev[key]
+
+    def vals_device(self, device) -> torch.Tensor:
+        """The values as [nnz, 8] Montgomery limbs on ``device`` (cached)."""
+        return self._device(device)["vals"]
+
+    def release_device(self) -> None:
+        """Drop the cached device copies (rebuilt lazily on next use)."""
+        self._dev.clear()
+        self._bnd_cache.clear()
+
+    def get_num_nz_entries(self) -> int:
+        """Padded nnz (sparse_mlpoly_full.rs:74), floored at 2 as in the
+        JAX package: a 1-entry ops table would give the lookup argument a
+        product tree with no layers."""
+        return max(2, next_power_of_two(len(self.vals)))
 
     def _boundaries(self, axis: str, num_segments: int, device):
         key = (axis, num_segments, str(device))

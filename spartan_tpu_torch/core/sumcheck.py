@@ -1,16 +1,18 @@
-"""Zero-knowledge sumcheck engines of the R1CS proof.
+"""Sumcheck engines: the plain batched product sumcheck and the ZK ones.
 
-Counterpart of the ZK half of ``spartan_tpu/core/sumcheck.py`` (reference
-sumcheck.rs:465-811), in the per-op composition the JAX package runs with
-``SPARTAN_TPU_FUSED_ROUND=0``: per round, the round polynomial's
-evaluations at {0, 2, 3} are field products of the table halves reduced
-with exact sums (the "eval at {0,2,3} trick", sumcheck.rs:89-161), and
-the folds bind the top variable elementwise, lo + r * (hi - lo).
-Every product, sum and difference is kernel H1; the reductions are exact
-plain torch. The host drives the transcript and the tiny per-round algebra,
-commits each round polynomial and proves the two claims with a batched
-DotProductProof. Tables of at most ``hostpath.HOST_N`` entries finish the
-rounds on the host.
+Counterpart of ``spartan_tpu/core/sumcheck.py`` (reference sumcheck.rs)
+on one device. Per round, the round polynomial's evaluations at {0, 2, 3}
+(the "eval at {0,2,3} trick", sumcheck.rs:89-161) and the folds that bind
+the top variable, lo + r * (hi - lo), are the fused round kernels of
+``ops/sumcheck_kernels.py``: a round folds every table by the previous
+challenge and computes the next round's evaluations in one launch (S2 for
+the product layers, S3 for ZK phase 1, S4 for ZK phase 2; S1 folds alone
+where the next round runs on the host). Tables stay in natural order.
+The host drives the transcript and the tiny per-round algebra; the ZK
+variants also commit each round polynomial and prove the two claims with a
+batched DotProductProof. Tables of at most ``hostpath.HOST_N`` entries
+finish the rounds on the host. The JAX package's mesh branches and fused
+device-transcript tail are not ported.
 """
 
 from __future__ import annotations
@@ -18,107 +20,141 @@ from __future__ import annotations
 import time as _time
 from dataclasses import dataclass
 
-import torch
-
 from spartan_tpu_torch.core import hostpath as HP
 from spartan_tpu_torch.core import mle
 from spartan_tpu_torch.core.commitments import MultiCommitGens, commit, commit_scalar
 from spartan_tpu_torch.core.group import GroupElem
 from spartan_tpu_torch.core.nizk import DotProductProof
-from spartan_tpu_torch.core.unipoly import UniPoly
+from spartan_tpu_torch.core.unipoly import CompressedUniPoly, UniPoly
 from spartan_tpu_torch.ops import field as F
+from spartan_tpu_torch.ops import sumcheck_kernels as SK
 from spartan_tpu_torch.ops.fields_host import FR_MOD
 from spartan_tpu_torch.utils.errors import ProofVerifyError
 from spartan_tpu_torch.utils.timer import Timer
 
-fr = F.fr
-
 
 # ---------------------------------------------------------------------------
-# per-op round helpers (spartan_tpu/core/sumcheck.py:208-300, 432-517)
+# non-ZK sumcheck
 # ---------------------------------------------------------------------------
 
-def _halves(T):
-    n = T.shape[-2] // 2
-    return T[..., :n, :], T[..., n:, :]
+@dataclass
+class SumcheckInstanceProof:
+    compressed_polys: list[CompressedUniPoly]
 
+    def verify(self, claim: int, num_rounds: int, degree_bound: int, transcript):
+        """Returns (final claim e, challenge vector r) (sumcheck.rs:35-86)."""
+        e = claim % FR_MOD
+        r: list[int] = []
+        if len(self.compressed_polys) != num_rounds:
+            raise ProofVerifyError("wrong number of rounds")
+        for i, cp in enumerate(self.compressed_polys):
+            poly = cp.decompress(e)
+            if poly.degree() != degree_bound:
+                raise ProofVerifyError(f"degree mismatch at round {i}")
+            if (poly.eval_at_zero() + poly.eval_at_one()) % FR_MOD != e:
+                raise ProofVerifyError(f"sum check failed at round {i}")
+            poly.append_to_transcript(b"poly", transcript)
+            r_i = transcript.challenge_scalar(b"challenge_nextround")
+            r.append(r_i)
+            e = poly.evaluate(r_i)
+        return e, r
 
-def _extrapolate(lo, hi):
-    """Table values at points 2 and 3: 2*hi - lo and 3*hi - 2*lo."""
-    p2 = fr.sub(fr.add(hi, hi), lo)
-    p3 = fr.sub(fr.add(p2, hi), lo)
-    return p2, p3
+    @staticmethod
+    def prove_cubic(claim: int, num_rounds: int, poly_A, poly_B, poly_C, transcript):
+        """Product comb A*B*C (sumcheck.rs:89-161): the batched sumcheck
+        with one instance and coefficient 1, which sends the same round
+        polynomials. The tables are consumed. Returns (proof, r, [A(r),
+        B(r), C(r)])."""
+        proof, r, (fa, fb, fc), _ = SumcheckInstanceProof.prove_cubic_batched(
+            claim, num_rounds, ([poly_A], [poly_B], poly_C), ([], [], []), [1], transcript)
+        return proof, r, [fa[0], fb[0], fc]
 
+    @staticmethod
+    def prove_cubic_batched(claim: int, num_rounds: int, poly_vec_par, poly_vec_seq,
+                            coeffs: list[int], transcript):
+        """Batched product sumcheck (sumcheck.rs:165-330).
 
-def k_cubic_prod_evals(A, B, C):
-    """Round evals (e0, e2, e3) of sum A*B*C; tables [..., N, 8]."""
-    aL, aH = _halves(A)
-    bL, bH = _halves(B)
-    cL, cH = _halves(C)
-    a2, a3 = _extrapolate(aL, aH)
-    b2, b3 = _extrapolate(bL, bH)
-    c2, c3 = _extrapolate(cL, cH)
-    e0 = fr.reduce_sum(fr.mul(fr.mul(aL, bL), cL), axis=-2)
-    e2 = fr.reduce_sum(fr.mul(fr.mul(a2, b2), c2), axis=-2)
-    e3 = fr.reduce_sum(fr.mul(fr.mul(a3, b3), c3), axis=-2)
-    return e0, e2, e3
+        poly_vec_par: (A_list, B_list, C_shared) DensePolynomials; the
+        "par" instances share C (the eq table). poly_vec_seq: (A_list,
+        B_list, C_list) with per-instance C. All tables have equal length.
+        A device round is one S2 launch over every instance (the shared C
+        is folded once by S1 first); the evaluations come back in the
+        order the transcript batches them (sumcheck.rs:229-241). Every
+        input table is consumed (its ``Z`` is dropped once folded).
+        Returns (proof, r, (A_par(r), B_par(r), C(r)), (A_seq(r),
+        B_seq(r), C_seq(r))).
+        """
+        A_par, B_par, C_par = poly_vec_par
+        A_seq, B_seq, C_seq = poly_vec_seq
+        nP, nS = len(A_par), len(A_seq)
+        I = nP + nS
 
+        TA = [p.Z for p in A_par] + [p.Z for p in A_seq]
+        TB = [p.Z for p in B_par] + [p.Z for p in B_seq]
+        TC = [p.Z for p in C_seq]
+        Cp = C_par.Z
+        dev = Cp.device
+        # consumed inputs: from here the tables live only in TA/TB/TC/Cp
+        for p in (*A_par, *B_par, C_par, *A_seq, *B_seq, *C_seq):
+            p.Z = None
 
-def k_fold_top(T, r):
-    """bound_poly_var_top over the second-to-last axis, batched leading dims."""
-    lo, hi = _halves(T)
-    return fr.add(lo, fr.mul(r, fr.sub(hi, lo)))
+        e = claim % FR_MOD
+        r: list[int] = []
+        polys: list[CompressedUniPoly] = []
+        host = None      # (HA, HB, HCp, HCs) host-int tables for the tail
+        pending = None   # device evals [3I, 8] of the current round
+        cur_n = Cp.shape[0]
+        for _ in range(num_rounds):
+            if host is None and cur_n <= HP.HOST_N:
+                dec = mle.decode_tables(TA + TB + [Cp] + TC)
+                host = (dec[:I], dec[I:2 * I], dec[2 * I], dec[2 * I + 1:])
+                TA = TB = TC = Cp = None
+            if host is not None:
+                HA, HB, HCp, HCs = host
+                ev = [HP.cubic_prod_evals(HA[k], HB[k], HCp if k < nP else HCs[k - nP])
+                      for k in range(I)]
+                ev0, ev2, ev3 = ([t[i] for t in ev] for i in range(3))
+            else:
+                if pending is None:
+                    pending = SK.prod_evals(TA, TB, [Cp] * nP + TC)
+                vals = F.decode_fr(pending)
+                ev0, ev2, ev3 = vals[0::3], vals[1::3], vals[2::3]
+            c0 = sum(ev0[i] * coeffs[i] for i in range(I)) % FR_MOD
+            c2 = sum(ev2[i] * coeffs[i] for i in range(I)) % FR_MOD
+            c3 = sum(ev3[i] * coeffs[i] for i in range(I)) % FR_MOD
+            poly = UniPoly.from_evals([c0, (e - c0) % FR_MOD, c2, c3])
+            poly.append_to_transcript(b"poly", transcript)
+            r_j = transcript.challenge_scalar(b"challenge_nextround")
+            r.append(r_j)
+            if host is not None:
+                HA, HB, HCp, HCs = host
+                host = ([HP.fold_top(t, r_j) for t in HA], [HP.fold_top(t, r_j) for t in HB],
+                        HP.fold_top(HCp, r_j), [HP.fold_top(t, r_j) for t in HCs])
+            else:
+                r_dev = mle.encode_scalar(r_j, dev)
+                if cur_n // 2 <= max(HP.HOST_N, 1):
+                    # the host takes the next round (or none is left): fold only
+                    out = SK.fold(TA + TB + [Cp] + TC, r_dev)
+                    TA, TB, Cp, TC = out[:I], out[I:2 * I], out[2 * I], out[2 * I + 1:]
+                    pending = None
+                else:
+                    (Cp,) = SK.fold([Cp], r_dev)
+                    TA, TB, Cs, pending = SK.prod_step(
+                        TA, TB, [Cp] * nP + TC, r_dev, [False] * nP + [True] * nS)
+                    TC = Cs[nP:]
+            cur_n //= 2
+            e = poly.evaluate(r_j)
+            polys.append(poly.compress())
 
-
-def k_cubic_additive_stack(T, A, B, C):
-    """Stacked round evals (e0, e2, e3) of sum tau * (Az*Bz - Cz)
-    (sumcheck.rs:465-530)."""
-    tL, tH = _halves(T)
-    aL, aH = _halves(A)
-    bL, bH = _halves(B)
-    cL, cH = _halves(C)
-    t2, t3 = _extrapolate(tL, tH)
-    a2, a3 = _extrapolate(aL, aH)
-    b2, b3 = _extrapolate(bL, bH)
-    c2, c3 = _extrapolate(cL, cH)
-
-    def comb(t, a, b, c):
-        return fr.mul(t, fr.sub(fr.mul(a, b), c))
-
-    e0 = fr.reduce_sum(comb(tL, aL, bL, cL), axis=-2)
-    e2 = fr.reduce_sum(comb(t2, a2, b2, c2), axis=-2)
-    e3 = fr.reduce_sum(comb(t3, a3, b3, c3), axis=-2)
-    return torch.stack((e0, e2, e3), dim=0)
-
-
-def k_step_cubic_additive(T, A, B, C, r):
-    """Fold every table by r, then the next round's evals."""
-    T, A, B, C = (k_fold_top(t, r) for t in (T, A, B, C))
-    return T, A, B, C, k_cubic_additive_stack(T, A, B, C)
-
-
-def k_folds_cubic_additive(T, A, B, C, r):
-    return tuple(k_fold_top(t, r) for t in (T, A, B, C))
-
-
-def k_quad_stack(A, B):
-    """Stacked round evals (e0, e2) of sum A*B (sumcheck.rs:684-699)."""
-    aL, aH = _halves(A)
-    bL, bH = _halves(B)
-    a2 = fr.sub(fr.add(aH, aH), aL)
-    b2 = fr.sub(fr.add(bH, bH), bL)
-    e0 = fr.reduce_sum(fr.mul(aL, bL), axis=-2)
-    e2 = fr.reduce_sum(fr.mul(a2, b2), axis=-2)
-    return torch.stack((e0, e2), dim=0)
-
-
-def k_step_quad(A, B, r):
-    A, B = k_fold_top(A, r), k_fold_top(B, r)
-    return A, B, k_quad_stack(A, B)
-
-
-def k_folds_quad(A, B, r):
-    return k_fold_top(A, r), k_fold_top(B, r)
+        if host is not None:
+            HA, HB, HCp, HCs = host
+            finals = [t[0] for t in HA + HB] + [HCp[0]] + [t[0] for t in HCs]
+        else:
+            finals = F.decode_fr(mle.first_rows(TA + TB + [Cp] + TC))
+        finals_A, finals_B = finals[:I], finals[I:2 * I]
+        claims_prod = (finals_A[:nP], finals_B[:nP], finals[2 * I])
+        claims_dotp = (finals_A[nP:], finals_B[nP:], finals[2 * I + 1:])
+        return SumcheckInstanceProof(polys), r, claims_prod, claims_dotp
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +229,10 @@ class ZKSumcheckInstanceProof:
                 gens_1, gens_n, transcript, random_tape):
         """Shared round loop of the cubic-additive and quad sumchecks."""
         if kind == "cubic":
-            host_evals, stack, step, folds = (HP.cubic_additive_evals, k_cubic_additive_stack,
-                                              k_step_cubic_additive, k_folds_cubic_additive)
+            host_evals, evals, step = (HP.cubic_additive_evals, SK.additive_evals,
+                                       SK.additive_step)
         else:
-            host_evals, stack, step, folds = (HP.quad_evals, k_quad_stack,
-                                              k_step_quad, k_folds_quad)
+            host_evals, evals, step = HP.quad_evals, SK.quad_evals, SK.quad_step
         blinds_poly = random_tape.random_vector(b"blinds_poly", num_rounds)
         blinds_evals = random_tape.random_vector(b"blinds_evals", num_rounds)
         claim_per_round = claim % FR_MOD
@@ -220,7 +255,7 @@ class ZKSumcheckInstanceProof:
                 v = host_evals(*host)
             else:
                 if pending is None:
-                    pending = stack(*(p.Z for p in tables))
+                    pending = evals(*(p.Z for p in tables))
                 v = F.decode_fr(pending)
             Timer.acc(f"zk_{kind}/evals", _time.perf_counter() - _t)
             _t = _time.perf_counter()
@@ -236,8 +271,8 @@ class ZKSumcheckInstanceProof:
                 host = [HP.fold_top(t, r_j) for t in host]
             else:
                 r_dev = mle.encode_scalar(r_j, dev)
-                if cur_n // 2 <= HP.HOST_N:
-                    folded = folds(*(p.Z for p in tables), r_dev)
+                if cur_n // 2 <= max(HP.HOST_N, 1):
+                    folded = SK.fold([p.Z for p in tables], r_dev)
                     pending = None
                 else:
                     *folded, pending = step(*(p.Z for p in tables), r_dev)

@@ -281,6 +281,44 @@ __device__ __forceinline__ void store_point(uint4* x, uint4* y, uint4* z,
   store_fe(y + 2 * i, P.Y);
   store_fe(z + 2 * i, P.Z);
 }
+
+BN_DEV Fe fr_zero() { return fq_zero(); }
+
+// Fr sum over the warp, exact mod p; lane 0 holds the warp's total
+__device__ __forceinline__ Fe warp_sum_fr(Fe x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    Fe y;
+#pragma unroll
+    for (int k = 0; k < 8; k++) y.v[k] = __shfl_down_sync(0xffffffffu, x.v[k], o);
+    x = add<Fr>(x, y);
+  }
+  return x;
+}
+
+// Block sum of each of E per-thread Fr accumulators, with modular adds
+// (warp shuffles, then one warp over the warps' totals); thread 0 writes
+// the E canonical sums to out[0..E) (E elements of two uint4 each). Every
+// thread of the block must call it.
+template <int E>
+__device__ __forceinline__ void block_sum_store(const Fe (&acc)[E], uint4* __restrict__ out) {
+  __shared__ Fe part[E][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int e = 0; e < E; e++) {
+    const Fe s = warp_sum_fr(acc[e]);
+    if (lane == 0) part[e][warp] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int e = 0; e < E; e++) {
+      const Fe s = warp_sum_fr(lane < nwarps ? part[e][lane] : fr_zero());
+      if (lane == 0) store_fe(out + 2 * e, s);
+    }
+  }
+}
 #endif
 
 }  // namespace bn254

@@ -6,7 +6,9 @@ limbs stored as int32 bit patterns ``[..., 8]``. Both use Montgomery form
 with R = 2^256, so a value converts by regrouping limb pairs and nothing
 else. Everything here takes and returns numpy arrays or plain Python data
 and never imports the JAX package, so callers (the cross-package tests)
-can hand the same generators, shapes and tables to both.
+can hand the same generators, shapes, tables, SNARK dense representation,
+commitments and proofs to both (the last two through their serialized
+bytes, which are the same format in both packages).
 """
 
 from __future__ import annotations
@@ -79,5 +81,40 @@ def dense_poly(Z16, device="cpu") -> DensePolynomial:
     return DensePolynomial(to_port(Z16, device))
 
 
+def dense_rep(num_cells: int, row_addr, col_addr, vals16, device="cpu"):
+    """The port's SNARK dense representation of the JAX one's data.
+
+    ``row_addr``/``col_addr``: the per-matrix address arrays
+    (``ops_addr_usize`` of the JAX ``AddrTimestamps``); ``vals16``: the
+    value tables [N, 16] (``np.asarray`` of each ``val[i].Z``). The
+    timestamps are derived from the addresses, as the JAX package derives
+    them."""
+    from spartan_tpu_torch.core import sparse_mlpoly_full as full
+
+    num_ops = len(row_addr[0])
+    return full.MultiSparseMatPolynomialAsDense(
+        len(vals16),
+        full.AddrTimestamps(num_cells, num_ops, list(row_addr), torch.device(device)),
+        full.AddrTimestamps(num_cells, num_ops, list(col_addr), torch.device(device)),
+        [dense_poly(v, device) for v in vals16])
+
+
+def r1cs_commitment(raw: bytes):
+    """A serialized ``R1CSCommitment`` (either package's bytes) -> the port's."""
+    from spartan_tpu_torch.core.r1cs import R1CSCommitment
+    from spartan_tpu_torch.utils.serialization import deserialize
+
+    return deserialize(R1CSCommitment, raw)
+
+
+def snark_proof(raw: bytes):
+    """A serialized ``SNARK`` proof (either package's bytes) -> the port's."""
+    from spartan_tpu_torch.snark import SNARK
+    from spartan_tpu_torch.utils.serialization import deserialize
+
+    return deserialize(SNARK, raw)
+
+
 __all__ = ["limbs16_to_32", "limbs32_to_16", "to_port", "from_port", "affine_to_port",
-           "multicommit_gens", "r1cs_shape", "dense_poly"]
+           "multicommit_gens", "r1cs_shape", "dense_poly", "dense_rep", "r1cs_commitment",
+           "snark_proof"]

@@ -476,6 +476,20 @@ def decode_fr(arr: torch.Tensor, spec: FieldSpec = FR) -> list[int]:
     return limbs_to_ints(canon.to("cpu").numpy())
 
 
+def encode_small_uints(values, spec: FieldSpec = FR, device=None) -> torch.Tensor:
+    """Non-negative ints below 2^63 (numpy array or list) -> [n, 8]
+    Montgomery limbs on ``device``: the two low limbs are set on the
+    device, then one multiply by R^2 (H1 on a card). No Python ints, for
+    the index and timestamp tables of the lookup argument."""
+    dev = DEV.current() if device is None else torch.device(device)
+    v = torch.from_numpy(np.ascontiguousarray(values, dtype=np.int64)).to(dev)
+    canon = torch.zeros((v.shape[0], NUM_LIMBS), dtype=torch.int32, device=dev)
+    lo = v & 0xFFFFFFFF
+    canon[:, 0] = (lo - ((lo >> 31) << 32)).to(torch.int32)
+    canon[:, 1] = (v >> 32).to(torch.int32)
+    return (fr if spec is FR else fq).to_mont(canon)
+
+
 def encode_canonical(values, device=None) -> torch.Tensor:
     """Python ints (already reduced) -> [n, 8] canonical (non-Montgomery)
     limbs, the scalar form the MSM takes."""
@@ -493,4 +507,4 @@ def decode_fq(arr) -> list[int]:
 
 __all__ = ["FR", "FQ", "FieldSpec", "fr", "fq", "field_ew", "field_ew_plain",
            "launch_field_ew", "encode_fr", "decode_fr", "encode_fq", "decode_fq",
-           "encode_canonical", "reduce_columns"]
+           "encode_small_uints", "encode_canonical", "reduce_columns"]

@@ -34,11 +34,16 @@ SOURCES = {
     "curve_ew": "curve_ew.cu",          # H2
     "msm_bucket": "msm_bucket.cu",      # H3
     "msm_weighted": "msm_weighted.cu",  # H4
+    "sc_fold": "sc_fold.cu",                      # S1
+    "sc_round_prod": "sc_round_prod.cu",          # S2
+    "sc_round_additive": "sc_round_additive.cu",  # S3
+    "sc_round_quad": "sc_round_quad.cu",          # S4
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U64P = ctypes.POINTER(ctypes.c_ulonglong)  # host array of device pointers
 # exported C functions: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
     "field_ew": {"field_ew_launch": [_I, _I, _P, _L, _P, _L, _P, _L, _P]},
@@ -46,6 +51,10 @@ _SIGNATURES = {
                  "curve_pdbl_launch": [_P] * 6 + [_L, _P]},
     "msm_bucket": {"msm_bucket_launch": [_P] * 5 + [_I, _I, _L] + [_P] * 4},
     "msm_weighted": {"msm_weighted_launch": [_P] * 3 + [_I, _I, _I, _L] + [_P] * 4},
+    "sc_fold": {"sc_fold_launch": [_U64P, _I, _P, _L, _I, _P]},
+    "sc_round_prod": {"sc_round_prod_launch": [_I, _U64P, _I, _P, _L, _I, _P, _P]},
+    "sc_round_additive": {"sc_round_additive_launch": [_I, _U64P, _P, _L, _I, _P, _P]},
+    "sc_round_quad": {"sc_round_quad_launch": [_I, _U64P, _P, _L, _I, _P, _P]},
 }
 
 _libs: dict = {}

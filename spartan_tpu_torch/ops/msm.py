@@ -14,7 +14,9 @@ windows of every scalar row:
   4. the window sums are combined by a Horner ladder of H2 doublings and
      additions.
 
-Tiny MSMs take a batched double-and-add ladder instead. Every function
+While ``Timer.collect()`` is on, each stage's time is accumulated under
+the innermost running Timer (``Timer.stage``). Tiny MSMs take a batched
+double-and-add ladder instead. Every function
 takes the affine generator table (x, y, inf) shared by all rows and
 returns projective points. Beside each kernel wrapper is its plain PyTorch
 version; a CPU tensor goes to the plain version, a CUDA tensor to the
@@ -28,6 +30,7 @@ import torch
 from spartan_tpu_torch.ops import curve as CU
 from spartan_tpu_torch.ops import kernels as K
 from spartan_tpu_torch.ops.limbs import NUM_LIMBS
+from spartan_tpu_torch.utils.timer import Timer
 
 # MSMs of at most this many points take the double-and-add ladder
 LADDER_N = 64
@@ -156,10 +159,13 @@ def bucket_inputs(points, digits, c):
 
 def bucket_sums(points, digits, c):
     """Bucket sums of buckets 1..2^c-1 for digit rows [B, N] -> [B, nb]."""
-    args = bucket_inputs(points, digits, c)
-    if digits.device.type == "cpu":
-        return bucket_sums_plain(*args)
-    return launch_msm_bucket(*args)
+    dev = digits.device
+    with Timer.stage("msm.sort_and_bounds", dev):
+        args = bucket_inputs(points, digits, c)
+    with Timer.stage("msm.h3_bucket_sums", dev):
+        if dev.type == "cpu":
+            return bucket_sums_plain(*args)
+        return launch_msm_bucket(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +237,14 @@ def launch_msm_weighted(buckets, seglen: int, nseg: int):
 def weighted_sums(buckets, c: int):
     """Per-row sum_b b * B_b of bucket sums [B, 2^c - 1] -> projective [B]."""
     seglen, nseg = _segments((1 << c) - 1)
-    if buckets[0].device.type == "cpu":
-        shares = weighted_shares_plain(buckets, seglen, nseg)
-    else:
-        shares = launch_msm_weighted(tuple(a.contiguous() for a in buckets), seglen, nseg)
-    return reduce_points(shares, axis=1)
+    dev = buckets[0].device
+    with Timer.stage("msm.h4_weighted_shares", dev):
+        if dev.type == "cpu":
+            shares = weighted_shares_plain(buckets, seglen, nseg)
+        else:
+            shares = launch_msm_weighted(tuple(a.contiguous() for a in buckets), seglen, nseg)
+    with Timer.stage("msm.share_reduction", dev):
+        return reduce_points(shares, axis=1)
 
 
 def bucket_windows(points, digits, c: int):
@@ -278,13 +287,15 @@ def msm(points, scalars, c: int | None = None):
     B = 1
     for s in batch_shape:
         B *= s
-    digits = window_digits(scalars.reshape(B, n, NUM_LIMBS), c)   # [B, n, W]
-    W = digits.shape[-1]
-    dig = digits.permute(2, 0, 1).reshape(W * B, n)   # window-major rows
+    with Timer.stage("msm.window_digits", scalars.device):
+        digits = window_digits(scalars.reshape(B, n, NUM_LIMBS), c)   # [B, n, W]
+        W = digits.shape[-1]
+        dig = digits.permute(2, 0, 1).reshape(W * B, n)   # window-major rows
     rows_per_call = min(max(1, CHUNK_BUDGET // n), W * B)
     parts = [bucket_windows(points, dig[s:s + rows_per_call], c)
              for s in range(0, W * B, rows_per_call)]
     win = tuple(torch.cat([p[i] for p in parts], dim=0).reshape(W, B, NUM_LIMBS).flip(0)
                 for i in range(3))
-    acc = _horner_windows(win, c)
+    with Timer.stage("msm.horner", scalars.device):
+        acc = _horner_windows(win, c)
     return tuple(a.reshape(*batch_shape, NUM_LIMBS) for a in acc)

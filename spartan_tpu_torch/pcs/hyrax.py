@@ -15,7 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from spartan_tpu_torch.core import mle
-from spartan_tpu_torch.core.commitments import commit_rows
+from spartan_tpu_torch.core.commitments import commit_rows, commit_scalar
 from spartan_tpu_torch.core.group import GroupElem
 from spartan_tpu_torch.core.mle import DensePolynomial, EqPolynomial
 from spartan_tpu_torch.core.nizk import DotProductProofGens, DotProductProofLog
@@ -170,3 +170,9 @@ class PolyEvalProof:
             C_LZ = GroupElem(CU.decode_points(tuple(a.unsqueeze(0) for a in C_LZ_pt))[0])
 
         self.proof.verify(R_dev.shape[0], gens.gens, transcript, R_dev, C_LZ, C_Zr)
+
+    def verify_plain(self, gens: PolyCommitmentGens, transcript, r: list[int],
+                     Zr: int, comm: PolyCommitment) -> None:
+        """Verify an opening to the public value Zr (blind 0)."""
+        C_Zr = commit_scalar(Zr, 0, gens.gens.gens_1)
+        self.verify(gens, transcript, r, C_Zr, comm)

@@ -1,10 +1,13 @@
-"""Public proof-system API of the port: Assignment, Instance, NIZK.
+"""Public proof-system API of the port: Assignment, Instance, NIZK, SNARK.
 
-Counterpart of the NIZK part of ``spartan_tpu/snark.py`` (reference
-src/snark.rs:20-287). The NIZK carries (rx, ry) so its verifier can
-evaluate A, B, C itself. The entry points run on the CUDA card unless the
-caller passes ``device="cpu"``: ``NIZKGens`` places its generators on the
-device, and ``NIZK.prove``/``verify`` run on the generators' device.
+Counterpart of ``spartan_tpu/snark.py`` (reference src/snark.rs). The
+NIZK carries (rx, ry) so its verifier can evaluate A, B, C itself
+(snark.rs:183-287); the SNARK instead carries claimed evaluations plus the
+sparse-matrix evaluation proof against the preprocessed commitment
+(snark.rs:393-529), with Hyrax commitments only. The entry points run on
+the CUDA card unless the caller passes ``device="cpu"``: ``NIZKGens`` and
+``SNARKGens`` place their generators on the device, and every prove,
+encode and verify runs on the generators' device.
 """
 
 from __future__ import annotations
@@ -12,7 +15,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from spartan_tpu_torch import device as DEV
-from spartan_tpu_torch.core.r1cs import R1CSShape
+from spartan_tpu_torch.core.r1cs import (
+    R1CSCommitment,
+    R1CSCommitmentGens,
+    R1CSDecommitment,
+    R1CSEvalProof,
+    R1CSShape,
+)
 from spartan_tpu_torch.core.r1csproof import R1CSGens, R1CSProof
 from spartan_tpu_torch.ops.fields_host import FR_MOD
 from spartan_tpu_torch.utils.errors import (
@@ -145,3 +154,78 @@ class NIZK:
             )
         if rx != claimed_rx or ry != claimed_ry:
             raise ProofVerifyError("NIZK: claimed (rx, ry) do not match transcript")
+
+
+class SNARKGens:
+    """Generators of SNARK mode (snark.rs:289-391), on ``device`` (the
+    CUDA card by default). Only Hyrax is ported: ``pcs="kzg"`` raises."""
+
+    def __init__(self, num_cons: int, num_vars: int, num_inputs: int,
+                 num_nz_entries: int, pcs: str = "hyrax", device=None):
+        if pcs != "hyrax":
+            from spartan_tpu_torch.core.sparse_mlpoly_full import KZG_TODO
+
+            raise NotImplementedError(KZG_TODO)
+        self.device = DEV.resolve(device)
+        num_vars_padded = next_power_of_two(max(num_vars, num_inputs + 1))
+        num_cons_padded = next_power_of_two(max(num_cons, 2))
+        with DEV.use(self.device):
+            self.gens_r1cs_sat = R1CSGens(b"gens_r1cs_sat", num_cons_padded, num_vars_padded)
+            self.gens_r1cs_eval = R1CSCommitmentGens(
+                b"gens_r1cs_eval", num_cons_padded, num_vars_padded, num_nz_entries)
+
+
+@dataclass
+class SNARK:
+    """Succinct proof: sat proof + claimed evals + eval proof (snark.rs:393-529)."""
+
+    r1cs_sat_proof: R1CSProof
+    inst_evals: tuple[int, int, int]
+    r1cs_eval_proof: R1CSEvalProof
+
+    PROTOCOL = b"Spartan SNARK proof"
+
+    @staticmethod
+    def encode(inst: Instance, gens: SNARKGens) -> tuple[R1CSCommitment, R1CSDecommitment]:
+        """Preprocessing: commit the R1CS matrices (snark.rs:416-425)."""
+        with DEV.use(gens.device):
+            return inst.inst.commit(gens.gens_r1cs_eval)
+
+    @staticmethod
+    def prove(inst: Instance, comm: R1CSCommitment, decomm: R1CSDecommitment,
+              vars_: Assignment, input_: Assignment, gens: SNARKGens,
+              transcript: Transcript, random_tape: RandomTape | None = None) -> "SNARK":
+        tape = random_tape if random_tape is not None else RandomTape(b"snark_proof")
+        transcript.append_protocol_name(SNARK.PROTOCOL)
+        comm.append_to_transcript(b"comm", transcript)
+
+        padded = vars_
+        if inst.inst.num_vars > len(vars_.assignment):
+            padded = vars_.pad(inst.inst.num_vars)
+
+        with DEV.use(gens.device):
+            r1cs_sat_proof, rx, ry = R1CSProof.prove(
+                inst.inst, padded.assignment, input_.assignment,
+                gens.gens_r1cs_sat, transcript, tape)
+            inst_evals = inst.inst.evaluate(rx, ry)
+            # the matrices' device copies are done with; free them before
+            # the lookup argument
+            for m in (inst.inst.A, inst.inst.B, inst.inst.C):
+                m.release_device()
+            r1cs_eval_proof = R1CSEvalProof.prove(
+                decomm, rx, ry, inst_evals, gens.gens_r1cs_eval, transcript, tape)
+        return SNARK(r1cs_sat_proof, inst_evals, r1cs_eval_proof)
+
+    def verify(self, comm: R1CSCommitment, input_: Assignment,
+               transcript: Transcript, gens: SNARKGens) -> None:
+        transcript.append_protocol_name(SNARK.PROTOCOL)
+        comm.append_to_transcript(b"comm", transcript)
+
+        if len(input_.assignment) != comm.num_inputs:
+            raise ProofVerifyError("wrong number of inputs")
+        with DEV.use(gens.device):
+            rx, ry = self.r1cs_sat_proof.verify(
+                comm.num_vars, comm.num_cons, input_.assignment,
+                self.inst_evals, transcript, gens.gens_r1cs_sat)
+            self.r1cs_eval_proof.verify(
+                comm, rx, ry, self.inst_evals, gens.gens_r1cs_eval, transcript)

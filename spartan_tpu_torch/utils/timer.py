@@ -10,6 +10,7 @@ them.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -24,6 +25,7 @@ class Timer:
     _enabled = False
     _depth = 0
     _records: list | None = None  # (depth, label, seconds) when collecting
+    _open: list = []              # running Timers, innermost last
 
     def __init__(self, label: str):
         self.label = label
@@ -31,6 +33,7 @@ class Timer:
         self.start = time.perf_counter()
         self.depth = Timer._depth
         Timer._depth += 1
+        Timer._open.append(self)
         if Timer._enabled:
             print(f"{'  ' * (Timer._depth - 1)}* {label}", flush=True)
 
@@ -42,6 +45,8 @@ class Timer:
         if Timer._records is not None:
             Timer._records.append((self.depth, self.label, dt))
         Timer._depth = max(0, Timer._depth - 1)
+        if self in Timer._open:
+            Timer._open.remove(self)
         return dt
 
     def __enter__(self):
@@ -73,6 +78,7 @@ class Timer:
     # -- iteration would spam the record stream) ---------------------------
     _acc: dict = {}
     _counts: dict = {}
+    _pending: list = []   # (label, start event, end event) not read yet
 
     @staticmethod
     def acc(label: str, dt: float) -> None:
@@ -83,12 +89,40 @@ class Timer:
         Timer._counts[label] = Timer._counts.get(label, 0) + k
 
     @staticmethod
+    @contextlib.contextmanager
+    def stage(label: str, device):
+        """While collecting, add the time of the enclosed work to the
+        accumulator ``<innermost running Timer>/<label>``: on a CUDA device
+        the stream time between two events (read in ``acc_records``, so the
+        stage does not synchronise), on the CPU the wall clock. Otherwise
+        does nothing."""
+        if Timer._records is None:
+            yield
+            return
+        key = f"{Timer._open[-1].label}/{label}" if Timer._open else label
+        if device.type != "cuda":
+            t = time.perf_counter()
+            yield
+            Timer.acc(key, time.perf_counter() - t)
+            return
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        yield
+        e.record()
+        Timer._pending.append((key, s, e))
+
+    @staticmethod
     def acc_reset() -> None:
         Timer._acc = {}
         Timer._counts = {}
+        Timer._pending = []
 
     @staticmethod
     def acc_records() -> list:
         """[(label, seconds)] + [(label, count)] sorted by time desc."""
+        for key, s, e in Timer._pending:
+            e.synchronize()
+            Timer.acc(key, s.elapsed_time(e) / 1e3)
+        Timer._pending = []
         out = sorted(Timer._acc.items(), key=lambda kv: -kv[1])
         return out + [(f"n:{k}", v) for k, v in sorted(Timer._counts.items())]

@@ -113,6 +113,30 @@ def test_msm_vs_native(n):
     assert got == [CH.msm(s1, pts), CH.msm(s2, pts)]
 
 
+def test_msm_stage_accumulators():
+    """While collecting, each bucket-path stage is accumulated under the
+    innermost running Timer; the result is the same as without."""
+    from spartan_tpu_torch.utils.timer import Timer
+
+    n = 65
+    pts = points(n)
+    xs = scalars(n, 4)
+    sc = F.encode_canonical(xs, "cpu")
+    Timer.collect()
+    Timer.acc_reset()
+    try:
+        with Timer("commit"):
+            got = decode1(M.msm(affine(pts), sc))
+        labels = {lbl for lbl, _ in Timer.acc_records()}
+    finally:
+        Timer.collect(False)
+        Timer.acc_reset()
+    assert got == CH.msm(xs, pts)
+    assert labels == {f"commit/msm.{s}" for s in (
+        "window_digits", "sort_and_bounds", "h3_bucket_sums", "h4_weighted_shares",
+        "share_reduction", "horner")}
+
+
 def test_msm_matches_jax():
     import jax.numpy as jnp
 

@@ -199,24 +199,25 @@ def _host_tables(k, n, seed):
 
 @pytest.mark.parametrize("kind", ["cubic_prod", "cubic_additive", "quad"])
 def test_sumcheck_round_helpers_vs_host(kind):
-    """The per-op round evals and folds on H1 equal the host bigint ones."""
-    from spartan_tpu_torch.core import sumcheck as SC
+    """The round evals and folds of the sumcheck round kernels (their
+    plain versions here) equal the host bigint ones."""
+    from spartan_tpu_torch.ops import sumcheck_kernels as SK
 
     k = {"cubic_prod": 3, "cubic_additive": 4, "quad": 2}[kind]
     host = _host_tables(k, 16, 30 + k)
     dev = [F.encode_fr(t, device="cpu") for t in host]
     if kind == "cubic_prod":
-        got = [F.decode_fr(e)[0] for e in SC.k_cubic_prod_evals(*dev)]
+        got = F.decode_fr(SK.prod_evals(*[[t] for t in dev]))
         want = list(HP.cubic_prod_evals(*host))
     elif kind == "cubic_additive":
-        got = F.decode_fr(SC.k_cubic_additive_stack(*dev))
+        got = F.decode_fr(SK.additive_evals(*dev))
         want = list(HP.cubic_additive_evals(*host))
-        *folded, ev = SC.k_step_cubic_additive(*dev, F.encode_fr([12345], device="cpu")[0])
+        *folded, ev = SK.additive_step(*dev, F.encode_fr([12345], device="cpu")[0])
         assert F.decode_fr(ev) == list(HP.cubic_additive_evals(
             *[HP.fold_top(t, 12345) for t in host]))
         assert [F.decode_fr(t) for t in folded] == [HP.fold_top(t, 12345) for t in host]
     else:
-        got = F.decode_fr(SC.k_quad_stack(*dev))
+        got = F.decode_fr(SK.quad_evals(*dev))
         want = list(HP.quad_evals(*host))
     assert got == want
 

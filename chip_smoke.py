@@ -12,6 +12,8 @@ Phases, each printing one JSON line (``"phase": ...``):
             the shapes the 2^20 SNARK gives it, bit for bit (tolerance 0:
             all arithmetic is exact mod p), and the MSM against the host C
             MSM; each kernel's time beside its bound and its plain version's;
+            H3's tile, the most mixed adds one of its threads makes (at most
+            the tile, however long a run) and H3/H4's registers per thread;
 4. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
             (the SNARK below runs the same R1CSProof at 2^20);
 5. snark    SNARKGens, SNARK.encode / prove / verify of a synthetic
@@ -398,37 +400,58 @@ def check_kernels(torch, dev, report) -> None:
 def msm_launch(torch, pts, dig, c: int) -> dict:
     """H3 and H4 on one launch's digit rows [B, N] against their plain
     versions, bit for bit; their times (mean of 3 wrapper calls; the plain
-    versions once) and bounds."""
+    versions once) and bounds, H3's tile and the most mixed adds one of its
+    threads made (its `walk` output, against the plain version's), and each
+    kernel's registers per thread from its build."""
+    from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops import msm as M
 
-    args = M.bucket_inputs(pts, dig, c)
-    buckets = M.launch_msm_bucket(*args)
-    seglen, nseg = M._segments((1 << c) - 1)
-    shares = M.launch_msm_weighted(buckets, seglen, nseg)
-    plain, pms3 = cuda_once(torch, lambda: M.bucket_sums_plain(*args))
-    err3 = diff(torch, buckets, plain)
+    nb = (1 << c) - 1
+    B, N = dig.shape
+    args = M.bucket_inputs(pts, dig)
+    walk, walk_plain = (torch.empty(B * -(-N // M.TILE), dtype=torch.int32, device=dig.device)
+                        for _ in range(2))
+    buckets = M.launch_msm_bucket(*args, nb, walk=walk)
+    lg = M.seglen_log2(nb)
+    sums = M.launch_msm_weighted(buckets, lg)
+    plain, pms3 = cuda_once(torch, lambda: M.bucket_sums_plain(*args, nb, walk=walk_plain))
+    err3 = max(diff(torch, buckets, plain), diff(torch, walk, walk_plain))
     del plain
-    plain, pms4 = cuda_once(torch, lambda: M.weighted_shares_plain(buckets, seglen, nseg))
-    err4 = diff(torch, shares, plain)
+    plain, pms4 = cuda_once(torch, lambda: M.weighted_sums_plain(buckets, lg))
+    err4 = diff(torch, sums, plain)
     del plain
     if err3 or err4:
         raise AssertionError(f"H3/H4: kernel != plain ({err3}, {err4})")
-    ms3 = cuda_ms(torch, lambda: M.launch_msm_bucket(*args), 3)
-    ms4 = cuda_ms(torch, lambda: M.launch_msm_weighted(buckets, seglen, nseg), 3)
-    (B, N), nb = dig.shape, (1 << c) - 1
-    runs = args[4] - args[3]
+    ms3 = cuda_ms(torch, lambda: M.launch_msm_bucket(*args, nb), 3)
+    ms4 = cuda_ms(torch, lambda: M.launch_msm_weighted(buckets, lg), 3)
+    most = int(walk.max().item())
+    if most > M.TILE - 1:
+        raise AssertionError(f"H3: a thread made {most} mixed adds")
+    runs = h3_runs(torch, args[3], args[4])
     # H3's function: a bucket of k points is k - 1 mixed additions
-    adds = int((runs - 1).clamp(min=0).sum().item())
     b3, b3by = bound(N * 64 + B * N * 4 + B * nb * 8 + B * nb * 96,
-                     adds * PADD_MIXED_M * MONT)
+                     runs["mixed_adds"] * PADD_MIXED_M * MONT)
     # H4's function, sum_b b * B_b per row, by running and total sums:
     # 2 (nb - 1) complete additions per row, one projective point out
     b4, b4by = bound(B * nb * 96 + B * 96, B * 2 * (nb - 1) * PADD_M * MONT)
     return {"msm_bucket": {"ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": b3by,
-                           "shape": f"{B} digit rows x {N} points, c={c}",
-                           "mixed_adds": adds, "longest_run": int(runs.max().item())},
+                           "shape": f"{B} digit rows x {N} points, c={c}", "tile": M.TILE,
+                           "max_thread_mixed_adds": most, **runs,
+                           "ptxas": K.ptxas("msm_bucket")},
             "msm_weighted": {"ms": ms4, "plain_ms": pms4, "bound_ms": b4, "bound_by": b4by,
-                             "shape": f"{B} rows x {nb} buckets, {nseg} segments of {seglen}"}}
+                             "shape": f"{B} rows x {nb} buckets, {1 << M._lanes_log2(nb, lg)}"
+                                      f" lanes of {1 << lg} buckets per row",
+                             "ptxas": K.ptxas("msm_weighted")}}
+
+
+def h3_runs(torch, sd, start) -> dict:
+    """From the sorted digit rows: the mixed adds H3's function needs and
+    the longest run of one digit."""
+    live = torch.arange(sd.shape[1], device=sd.device) >= start.long().unsqueeze(1)
+    keys = (torch.arange(sd.shape[0], device=sd.device).unsqueeze(1) * (1 << 20) + sd)[live]
+    runs = torch.unique_consecutive(keys, return_counts=True)[1]
+    return {"mixed_adds": int(live.sum().item()) - runs.numel(),
+            "longest_run": int(runs.max().item()) if runs.numel() else 0}
 
 
 def check_sumcheck_kernels(torch, dev, report) -> None:

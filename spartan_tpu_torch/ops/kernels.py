@@ -6,7 +6,8 @@ C interface and loaded with ``ctypes``. Libraries are built on first use
 into ``build/kernels`` (see ``utils/cachedir.py``), keyed by a hash of the
 source, the shared header ``bn254.cuh`` and the flags, so an unchanged
 source is never rebuilt. ``build_all`` starts one ``nvcc`` per missing
-library, all at once, and waits for them together.
+library, all at once, and waits for them together; ptxas's report of each
+kernel's registers and spills is kept beside the library (``ptxas``).
 
 Every wrapper that launches a kernel calls ``count(name)`` right there and
 nowhere else, so ``counts()`` says which kernels a run went through.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,7 +42,7 @@ SOURCES = {
     "sc_round_quad": "sc_round_quad.cu",          # S4
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U64P = ctypes.POINTER(ctypes.c_ulonglong)  # host array of device pointers
@@ -49,7 +51,8 @@ _SIGNATURES = {
     "field_ew": {"field_ew_launch": [_I, _I, _P, _L, _P, _L, _P, _L, _P]},
     "curve_ew": {"curve_padd_launch": [_P] * 9 + [_L, _P],
                  "curve_pdbl_launch": [_P] * 6 + [_L, _P]},
-    "msm_bucket": {"msm_bucket_launch": [_P] * 5 + [_I, _I, _L] + [_P] * 4},
+    "msm_bucket": {"msm_bucket_launch": [_P] * 5 + [_I] * 4 + [_P] * 7 + [_L] + [_P] * 4
+                   + [_L, _P, _P]},
     "msm_weighted": {"msm_weighted_launch": [_P] * 3 + [_I, _I, _I, _L] + [_P] * 4},
     "sc_fold": {"sc_fold_launch": [_U64P, _I, _P, _L, _I, _P]},
     "sc_round_prod": {"sc_round_prod_launch": [_I, _U64P, _I, _P, _L, _I, _P, _P]},
@@ -108,10 +111,39 @@ def build_all(names=None) -> dict:
             if os.path.exists(tmp):
                 os.unlink(tmp)
             continue
+        with open(so_path(n)[:-3] + ".ptxas.txt", "wb") as f:
+            f.write(out)
         os.replace(tmp, so_path(n))
     if errors:
         raise RuntimeError("\n".join(errors))
     return took
+
+
+def parse_ptxas(text: str) -> dict:
+    """{function: {"registers", "spill_stores", "spill_loads", "stack"}} from
+    the output of nvcc -Xptxas -v."""
+    info, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)", line)
+        if m:
+            fn = m.group(1)
+            info.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            info[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            info[fn]["registers"] = int(m.group(1))
+    return info
+
+
+def ptxas(name: str) -> dict:
+    """ptxas's report of the library's build (``parse_ptxas``)."""
+    with open(so_path(name)[:-3] + ".ptxas.txt", encoding="utf-8", errors="replace") as f:
+        return parse_ptxas(f.read())
 
 
 def lib(name: str):

@@ -5,12 +5,15 @@ kernels of ``spartan_tpu/ops/msm_pallas.py``. For each of the W c-bit
 windows of every scalar row:
 
   1. ``window_digits`` splits canonical scalars into c-bit digits;
-  2. the digit rows are sorted (``torch.sort``) and each bucket's run of
-     equal digits bounded (``torch.searchsorted``); kernel H3
-     (``csrc/msm_bucket.cu``) walks every (row, bucket) run with mixed
-     additions and writes the bucket sums;
-  3. kernel H4 (``csrc/msm_weighted.cu``) forms sum_b b * B_b per row over
-     segments of buckets, whose shares are added with H2;
+  2. the digit rows are sorted (``torch.sort``); kernel H3
+     (``csrc/msm_bucket.cu``) cuts each row's nonzero range into tiles of
+     TILE sorted positions, walks each tile with mixed additions (a thread
+     never makes more than TILE - 1, however long a bucket's run), and adds
+     the pieces of runs cut by tile edges in further tile passes, one level
+     up each, into the bucket sums;
+  3. kernel H4 (``csrc/msm_weighted.cu``) forms sum_b b * B_b per row on
+     a few lanes of a warp: a segment of buckets per lane, then a suffix
+     scan, doublings and a tree over the row's lanes;
   4. the window sums are combined by a Horner ladder of H2 doublings and
      additions.
 
@@ -19,8 +22,9 @@ the innermost running Timer (``Timer.stage``). Tiny MSMs take a batched
 double-and-add ladder instead. Every function
 takes the affine generator table (x, y, inf) shared by all rows and
 returns projective points. Beside each kernel wrapper is its plain PyTorch
-version; a CPU tensor goes to the plain version, a CUDA tensor to the
-kernel.
+version, which makes the kernel's additions in the kernel's order, so the
+two agree bit for bit; a CPU tensor goes to the plain version, a CUDA
+tensor to the kernel.
 """
 
 from __future__ import annotations
@@ -35,11 +39,14 @@ from spartan_tpu_torch.utils.timer import Timer
 # MSMs of at most this many points take the double-and-add ladder
 LADDER_N = 64
 # digit-row elements (rows x points) per bucket pass: bounds the sort and
-# bucket transients (~40 bytes per element)
+# bucket transients (~40 bytes per element, and H3's piece slots 200 / TILE)
 CHUNK_BUDGET = 1 << 26
-# buckets per H4 thread: each segment adds 2 * SEGLEN points plus a short
-# double-and-add for its offset
-SEGLEN = 16
+# sorted positions per H3 tile: the most points one thread walks
+TILE = 32
+# H4: buckets per lane (segment) where the row's buckets allow, and the
+# most lanes one row takes (a warp)
+SEGLEN = 64
+LANES = 32
 
 
 def window_digits(scalars: torch.Tensor, c: int, num_bits: int = 254) -> torch.Tensor:
@@ -87,127 +94,279 @@ def reduce_points(p, axis=0):
 # H3: bucket sums
 # ---------------------------------------------------------------------------
 
-def bucket_sums_plain(px, py, order, lo, hi):
-    """Plain version of H3: the same walk per (row, bucket), vectorized
-    over the buckets whose run is still going at each step."""
-    B, nb = lo.shape
-    acc = [a.reshape(B * nb, NUM_LIMBS).clone() for a in CU.identity((B, nb), px.device)]
-    lo_f = lo.reshape(-1).long()
-    runs = (hi - lo).reshape(-1)
-    steps = int(runs.max()) if runs.numel() else 0
-    for k in range(steps):
-        act = torch.nonzero(runs > k).squeeze(1)
-        idx = order[act // nb, lo_f[act] + k].long()
-        new = CU.padd_mixed_plain(tuple(a[act] for a in acc), px[idx], py[idx])
-        for a, v in zip(acc, new):
-            a[act] = v
-    return tuple(a.reshape(B, nb, NUM_LIMBS) for a in acc)
+def bucket_inputs(points, digits):
+    """Sort each digit row.
+
+    Infinity points are forced to digit 0 (``msm_pallas.py:187``); digit 0
+    has no bucket, so neither they nor zero digits are ever added. Rows are
+    never padded (each H3 tile reads its own row's bounds), so the JAX
+    package's padding digit 2^c has nothing to mark here.
+    Returns (px, py, order [B, N], sd [B, N], start [B]), all int32: the
+    point index and the digit of each sorted position, and each row's
+    first nonzero position."""
+    px, py, pinf = points
+    digits = torch.where(pinf.unsqueeze(0), torch.zeros_like(digits), digits)
+    sd, order = torch.sort(digits, dim=-1, stable=True)
+    start = (sd == 0).sum(dim=-1, dtype=torch.int32)
+    return (px.contiguous(), py.contiguous(), order.to(torch.int32).contiguous(),
+            sd.to(torch.int32).contiguous(), start.contiguous())
 
 
-def launch_msm_bucket(px, py, order, lo, hi):
-    """H3 on CUDA: px, py [N, 8]; order [B, N]; lo, hi [B, nb] -> [B, nb]."""
-    N = px.shape[0]
-    B, nb = lo.shape
+def _levels(B: int, N: int) -> list:
+    """Piece slots read by each of H3's combine levels: two per row tile,
+    then two per tile of the level below, until one tile holds them all."""
+    n = 2 * B * -(-N // TILE)
+    sizes = [n]
+    while n > TILE:
+        n = 2 * -(-n // TILE)
+        sizes.append(n)
+    return sizes
+
+
+def _slots(n: int, dev):
+    """A piece buffer: n projective points and their keys (-1: empty)."""
+    return (*(torch.zeros((n, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3)),
+            torch.full((n,), -1, dtype=torch.int32, device=dev))
+
+
+def _flush_plain(out, slots, tile, bucket, first, last, nrun, acc):
+    """Plain ``flush_run`` for a batch of runs: a finished run to its
+    bucket in ``out`` (flat [B * nb]), any other to its tile's first piece
+    slot if it is the tile's first run, else to the second."""
+    done = torch.nonzero(first & last).squeeze(1)
+    for o, a in zip(out, acc):
+        o[bucket[done]] = a[done]
+    j = torch.nonzero(~(first & last)).squeeze(1)
+    slot = 2 * tile[j] + (nrun[j] > 0).long()
+    for o, a in zip(slots[:3], acc):
+        o[slot] = a[j]
+    slots[3][slot] = ((bucket[j] << 2) | first[j].long() | (last[j].long() << 1)).to(torch.int32)
+
+
+def _tiles_plain(px, py, order, sd, start, nb, out, slots, walk):
+    """Plain ``msm_bucket_tiles_kernel``: step j of every live tile at once."""
+    B, N = sd.shape
+    dev = sd.device
+    tpr = -(-N // TILE)
+    tile = torch.arange(B * tpr, device=dev)
+    row = tile // tpr
+    st = start.long()[row]
+    p0 = st + (tile % tpr) * TILE
+    live = torch.nonzero(p0 < N).squeeze(1)
+    tile, row, st, p0 = tile[live], row[live], st[live], p0[live]
+    p1 = torch.clamp(p0 + TILE, max=N)
+    sdl, ordl = sd.long(), order.long()
+    d = sdl[row, p0]
+    first = (p0 == st) | (sdl[row, (p0 - 1).clamp(min=0)] != d)
+    idx = ordl[row, p0]
+    acc = (px[idx], py[idx], CU.fq.one(idx.shape, dev))
+    nrun = torch.zeros_like(tile)
+    nadd = torch.zeros_like(tile)
+    for j in range(1, TILE):
+        a = torch.nonzero(p0 + j < p1).squeeze(1)
+        if a.numel() == 0:
+            break
+        p = p0[a] + j
+        e = sdl[row[a], p]
+        idx = ordl[row[a], p]
+        x, y = px[idx], py[idx]
+        new = e != d[a]
+        n = a[new]
+        _flush_plain(out, slots, tile[n], row[n] * nb + d[n] - 1, first[n],
+                     torch.ones_like(first[n]), nrun[n], tuple(c[n] for c in acc))
+        nrun[n] += 1
+        d[n] = e[new]
+        first[n] = True
+        for c, v in zip(acc, (x[new], y[new], CU.fq.one(n.shape, dev))):
+            c[n] = v
+        k = a[~new]
+        if k.numel():
+            for c, v in zip(acc, CU.padd_mixed_plain(tuple(c[k] for c in acc),
+                                                     x[~new], y[~new])):
+                c[k] = v
+            nadd[k] += 1
+    if walk is not None:
+        walk.zero_()
+        walk[tile] = nadd.to(torch.int32)
+    last = (p1 == N) | (sdl[row, p1.clamp(max=N - 1)] != d)
+    _flush_plain(out, slots, tile, row * nb + d - 1, first, last, nrun, acc)
+
+
+def _combine_plain(src, n: int, out, dst):
+    """Plain ``msm_bucket_combine_kernel`` over the first n slots of src."""
+    nt = -(-n // TILE)
+    dev = src[3].device
+    tiles = torch.arange(nt, device=dev)
+    keys = src[3][:n].long()
+    cur = torch.full((nt,), -1, dtype=torch.long, device=dev)
+    first = torch.zeros(nt, dtype=torch.bool, device=dev)
+    last = torch.zeros_like(first)
+    nrun = torch.zeros_like(cur)
+    acc = CU.identity((nt,), dev)
+    for j in range(TILE):
+        q = tiles * TILE + j
+        a = torch.nonzero((q < n) & (keys[q.clamp(max=n - 1)] >= 0)).squeeze(1)
+        if a.numel() == 0:
+            continue
+        k = keys[q[a]]
+        g = k >> 2
+        v = tuple(c[q[a]] for c in src[:3])
+        new = g != cur[a]
+        f = a[new & (cur[a] >= 0)]
+        _flush_plain(out, dst, f, cur[f], first[f], last[f], nrun[f], tuple(c[f] for c in acc))
+        nrun[f] += 1
+        s = a[new]
+        for c, w in zip(acc, v):
+            c[s] = w[new]
+        cur[s] = g[new]
+        first[s] = (k[new] & 1) == 1
+        o = a[~new]
+        if o.numel():
+            for c, w in zip(acc, CU.padd_plain(tuple(c[o] for c in acc),
+                                               tuple(w[~new] for w in v))):
+                c[o] = w
+        last[a] = ((k >> 1) & 1) == 1
+    f = torch.nonzero(cur >= 0).squeeze(1)
+    _flush_plain(out, dst, f, cur[f], first[f], last[f], nrun[f], tuple(c[f] for c in acc))
+
+
+def bucket_sums_plain(px, py, order, sd, start, nb: int, walk=None):
+    """Plain version of H3: the same tiles, pieces and combine levels, in
+    the same order of additions, each step vectorized over the tiles; walk
+    as in ``launch_msm_bucket``."""
+    B, N = sd.shape
     dev = px.device
-    for name, t, dtype, shape in (("px", px, torch.int32, (N, NUM_LIMBS)),
-                                  ("py", py, torch.int32, (N, NUM_LIMBS)),
-                                  ("order", order, torch.int32, (B, N)),
-                                  ("lo", lo, torch.int32, (B, nb)),
-                                  ("hi", hi, torch.int32, (B, nb))):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"H3 {name}: expected {dtype} {shape}, got "
+    out = tuple(a.reshape(B * nb, NUM_LIMBS).clone() for a in CU.identity((B, nb), dev))
+    sizes = _levels(B, N)
+    src = _slots(sizes[0], dev)
+    _tiles_plain(px, py, order, sd, start, nb, out, src, walk)
+    for n in sizes:
+        if not bool((src[3][:n] >= 0).any()):
+            break   # the levels left would find no piece
+        dst = _slots(2 * -(-n // TILE), dev)
+        _combine_plain(src, n, out, dst)
+        src = dst
+    return tuple(a.reshape(B, nb, NUM_LIMBS) for a in out)
+
+
+def launch_msm_bucket(px, py, order, sd, start, nb: int, walk=None):
+    """H3 on CUDA: px, py [N, 8]; order, sd [B, N]; start [B] -> [B, nb].
+    walk, if given: int32 [B * ceil(N / TILE)], filled with the mixed adds
+    each tile's thread made."""
+    N = px.shape[0]
+    B = sd.shape[0]
+    dev = px.device
+    checks = [("px", px, (N, NUM_LIMBS)), ("py", py, (N, NUM_LIMBS)),
+              ("order", order, (B, N)), ("sd", sd, (B, N)), ("start", start, (B,))]
+    if walk is not None:
+        checks.append(("walk", walk, (B * -(-N // TILE),)))
+    for name, t, shape in checks:
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"H3 {name}: expected int32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"H3 {name}: must be on the CUDA device {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"H3 {name}: must be contiguous and 16-byte aligned")
+    if (B * nb) << 2 >= 1 << 31:
+        raise ValueError(f"H3: {B} rows x {nb} buckets overflow the int32 piece keys")
     out = tuple(torch.empty((B, nb, NUM_LIMBS), dtype=torch.int32, device=dev)
                 for _ in range(3))
-    total = B * nb
-    if total == 0:
+    if B == 0:
         return out
+    sizes = _levels(B, N)
+    na, nbuf = sizes[0], 2 * -(-sizes[0] // TILE)
+    a = [torch.empty((na, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3)]
+    a.append(torch.empty((na,), dtype=torch.int32, device=dev))
+    b = [torch.empty((nbuf, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3)]
+    b.append(torch.empty((nbuf,), dtype=torch.int32, device=dev))
     lib = K.lib("msm_bucket")
-    rc = lib.msm_bucket_launch(px.data_ptr(), py.data_ptr(), order.data_ptr(),
-                               lo.data_ptr(), hi.data_ptr(), N, nb, total,
-                               out[0].data_ptr(), out[1].data_ptr(),
-                               out[2].data_ptr(), K.stream(dev))
+    rc = lib.msm_bucket_launch(px.data_ptr(), py.data_ptr(), order.data_ptr(), sd.data_ptr(),
+                               start.data_ptr(), N, nb, B, TILE,
+                               *(o.data_ptr() for o in out), *(t.data_ptr() for t in a), na,
+                               *(t.data_ptr() for t in b), nbuf,
+                               None if walk is None else walk.data_ptr(), K.stream(dev))
     K.count("msm_bucket")
     K.check(rc, "msm_bucket")
     return out
-
-
-def bucket_inputs(points, digits, c):
-    """Sort each digit row and bound each bucket's run.
-
-    Infinity points are forced to digit 0 (``msm_pallas.py:187``); digit 0
-    has no bucket, so neither they nor zero digits are ever added. Rows are
-    never padded (each H3 thread reads its own run bounds), so the JAX
-    package's padding digit 2^c has nothing to mark here.
-    Returns (px, py, order [B, N], lo [B, nb], hi [B, nb]), all int32."""
-    px, py, pinf = points
-    nb = (1 << c) - 1
-    digits = torch.where(pinf.unsqueeze(0), torch.zeros_like(digits), digits)
-    sd, order = torch.sort(digits, dim=-1, stable=True)
-    sd = sd.contiguous()
-    q = torch.arange(1, nb + 1, dtype=sd.dtype, device=sd.device)
-    q = q.expand(sd.shape[0], nb).contiguous()
-    lo = torch.searchsorted(sd, q, side="left").to(torch.int32)
-    hi = torch.searchsorted(sd, q, side="right").to(torch.int32)
-    return (px.contiguous(), py.contiguous(), order.to(torch.int32).contiguous(),
-            lo.contiguous(), hi.contiguous())
 
 
 def bucket_sums(points, digits, c):
     """Bucket sums of buckets 1..2^c-1 for digit rows [B, N] -> [B, nb]."""
     dev = digits.device
     with Timer.stage("msm.sort_and_bounds", dev):
-        args = bucket_inputs(points, digits, c)
+        args = bucket_inputs(points, digits)
     with Timer.stage("msm.h3_bucket_sums", dev):
         if dev.type == "cpu":
-            return bucket_sums_plain(*args)
-        return launch_msm_bucket(*args)
+            return bucket_sums_plain(*args, (1 << c) - 1)
+        return launch_msm_bucket(*args, (1 << c) - 1)
 
 
 # ---------------------------------------------------------------------------
 # H4: weighted bucket reduction
 # ---------------------------------------------------------------------------
 
-def _segments(nb: int) -> tuple[int, int]:
-    seglen = min(SEGLEN, nb)
-    return seglen, -(-nb // seglen)
+def _pow2(x: int) -> int:
+    """The least power of two >= x (x >= 1)."""
+    return 1 << (x - 1).bit_length()
 
 
-def weighted_shares_plain(buckets, seglen: int, nseg: int):
-    """Plain version of H4: each (row, segment) share
-    sum_{b in seg} (b - first + 1) B_b + (first - 1) * sum_{b in seg} B_b,
-    with the kernel's exact sequence of additions and doublings."""
+def seglen_log2(nb: int) -> int:
+    """log2 of H4's segment length L: SEGLEN, less where nb is smaller, more
+    where LANES segments of SEGLEN do not cover nb."""
+    return (max(min(SEGLEN, _pow2(nb)), _pow2(-(-nb // LANES)))).bit_length() - 1
+
+
+def _lanes_log2(nb: int, lg: int) -> int:
+    """log2 of H4's lanes per row: segments of 2^lg to cover nb buckets."""
+    ls = (_pow2(-(-nb >> lg)) if nb else 1).bit_length() - 1
+    if ls > LANES.bit_length() - 1:
+        raise ValueError(f"H4: {LANES} segments of 2^{lg} do not cover {nb} buckets")
+    return ls
+
+
+def weighted_sums_plain(buckets, lg: int):
+    """Plain version of H4 with segments of 2^lg buckets: the lanes'
+    segment walks, the suffix scan, the doublings and the shuffle tree in
+    the kernel's order of additions, vectorized over rows and lanes."""
     bx = buckets[0]
     B, nb = bx.shape[0], bx.shape[1]
     dev = bx.device
-    first = torch.arange(nseg, device=dev) * seglen + 1
-    last = torch.clamp(first + seglen - 1, max=nb)
-    run = CU.identity((B, nseg), dev)
-    tot = CU.identity((B, nseg), dev)
-    for j in range(seglen):
-        b = last - j
-        active = (b >= first).expand(B, nseg)
-        idx = (b - 1).clamp(min=0)
-        Bj = tuple(a[:, idx] for a in buckets)
-        run2 = CU.padd_plain(run, Bj)
-        tot2 = CU.padd_plain(tot, run2)
-        run = CU.pselect(active, run2, run)
-        tot = CU.pselect(active, tot2, tot)
-    k = (first - 1).expand(B, nseg)
-    corr = CU.identity((B, nseg), dev)
-    for i in range(int(k.max()).bit_length() - 1, -1, -1):
-        started = (k >> i) > 0
-        corr = CU.pselect(started, CU.pdbl_plain(corr), corr)
-        corr = CU.pselect(((k >> i) & 1) == 1, CU.padd_plain(corr, run), corr)
-    return CU.padd_plain(tot, corr)
+    S, L = 1 << _lanes_log2(nb, lg), 1 << lg
+    s = torch.arange(S, device=dev)
+    lo, hi = s * L + 1, torch.clamp(s * L + L, max=nb)
+    run, tot = CU.identity((B, S), dev), CU.identity((B, S), dev)
+    for j in range(L):
+        lanes = torch.nonzero(hi - j >= lo).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        Bj = tuple(a[:, hi[lanes] - j - 1] for a in buckets)
+        if j == 0:
+            r2 = t2 = Bj
+        else:
+            r2 = CU.padd_plain(tuple(a[:, lanes] for a in run), Bj)
+            t2 = CU.padd_plain(tuple(a[:, lanes] for a in tot), r2)
+        for a, v in zip(run + tot, r2 + t2):
+            a[:, lanes] = v
+    acc = run
+    o = 1
+    while o < S:
+        head = CU.padd_plain(tuple(a[:, :S - o] for a in acc), tuple(a[:, o:] for a in acc))
+        acc = tuple(torch.cat((h, a[:, S - o:]), dim=1) for h, a in zip(head, acc))
+        o *= 2
+    acc = tuple(a[:, 1:] for a in acc)
+    for _ in range(lg):
+        acc = CU.pdbl_plain(acc)
+    y = CU.padd_plain(acc, tuple(t[:, 1:] for t in tot))
+    acc = tuple(torch.cat((t[:, :1], v), dim=1) for t, v in zip(tot, y))
+    while o > 1:
+        o //= 2
+        acc = CU.padd_plain(tuple(a[:, :o] for a in acc), tuple(a[:, o:2 * o] for a in acc))
+    return tuple(a[:, 0] for a in acc)
 
 
-def launch_msm_weighted(buckets, seglen: int, nseg: int):
-    """H4 on CUDA: buckets [B, nb] projective -> shares [B, nseg]."""
+def launch_msm_weighted(buckets, lg: int):
+    """H4 on CUDA: buckets [B, nb] projective -> row sums [B]."""
     bx = buckets[0]
     B, nb = bx.shape[0], bx.shape[1]
     dev = bx.device
@@ -219,16 +378,13 @@ def launch_msm_weighted(buckets, seglen: int, nseg: int):
             raise ValueError("H4: buckets must be on one CUDA device")
         if not c.is_contiguous() or c.data_ptr() % 16:
             raise ValueError("H4: buckets must be contiguous and 16-byte aligned")
-    if seglen <= 0 or seglen * nseg < nb:
-        raise ValueError(f"H4: {nseg} segments of {seglen} do not cover {nb} buckets")
-    out = tuple(torch.empty((B, nseg, NUM_LIMBS), dtype=torch.int32, device=dev)
-                for _ in range(3))
-    total = B * nseg
-    if total == 0:
+    ls = _lanes_log2(nb, lg)
+    out = tuple(torch.empty((B, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3))
+    if B == 0:
         return out
     lib = K.lib("msm_weighted")
-    rc = lib.msm_weighted_launch(*(c.data_ptr() for c in buckets), nb, seglen, nseg,
-                                 total, *(o.data_ptr() for o in out), K.stream(dev))
+    rc = lib.msm_weighted_launch(*(c.data_ptr() for c in buckets), nb, lg, ls, B,
+                                 *(o.data_ptr() for o in out), K.stream(dev))
     K.count("msm_weighted")
     K.check(rc, "msm_weighted")
     return out
@@ -236,15 +392,12 @@ def launch_msm_weighted(buckets, seglen: int, nseg: int):
 
 def weighted_sums(buckets, c: int):
     """Per-row sum_b b * B_b of bucket sums [B, 2^c - 1] -> projective [B]."""
-    seglen, nseg = _segments((1 << c) - 1)
+    lg = seglen_log2((1 << c) - 1)
     dev = buckets[0].device
-    with Timer.stage("msm.h4_weighted_shares", dev):
+    with Timer.stage("msm.h4_weighted_sums", dev):
         if dev.type == "cpu":
-            shares = weighted_shares_plain(buckets, seglen, nseg)
-        else:
-            shares = launch_msm_weighted(tuple(a.contiguous() for a in buckets), seglen, nseg)
-    with Timer.stage("msm.share_reduction", dev):
-        return reduce_points(shares, axis=1)
+            return weighted_sums_plain(buckets, lg)
+        return launch_msm_weighted(tuple(a.contiguous() for a in buckets), lg)
 
 
 def bucket_windows(points, digits, c: int):

@@ -80,26 +80,107 @@ def test_bucket_stage_matches_jax():
 
 
 @pytest.mark.parametrize("seglen", [1, 4, 16])
-def test_weighted_segments(seglen, monkeypatch):
-    """Any split of the buckets into segments gives sum_b b * B_b."""
-    monkeypatch.setattr(M, "SEGLEN", seglen)
+def test_weighted_segments(seglen):
+    """Any segment length L (a power of two with 32 L >= nb) gives
+    sum_b b * B_b: the segment walks, the suffix scan over the lanes, the
+    doublings by L and the tree."""
     c = 4
     nb = (1 << c) - 1
     bpts = [BASE[i % len(BASE)] if i % 5 else None for i in range(2 * nb)]
     with DEV.use("cpu"):
         buckets = tuple(a.reshape(2, nb, 8) for a in CU.encode_points(bpts))
-    got = CU.decode_points(M.weighted_sums(buckets, c))
+    got = CU.decode_points(M.weighted_sums_plain(buckets, seglen.bit_length() - 1))
     for r in range(2):
         assert got[r] == CH.msm(list(range(1, nb + 1)), bpts[r * nb:(r + 1) * nb])
+
+
+@pytest.mark.parametrize("nb,lg,ls", [(15, 4, 0), (32, 5, 0), (33, 6, 0), (127, 6, 1),
+                                      (1023, 6, 4), (2047, 6, 5), (4095, 7, 5), (65535, 11, 5)])
+def test_h4_layout(nb, lg, ls):
+    """Segments of 64 buckets where nb allows, at most a warp per row."""
+    assert M.seglen_log2(nb) == lg and M._lanes_log2(nb, lg) == ls
+    assert (1 << (lg + ls)) >= nb
 
 
 def test_infinity_points_get_digit_zero():
     pts = points(8, inf=(1, 5))
     digits = torch.full((2, 8), 3, dtype=torch.int32)
-    px, py, order, lo, hi = M.bucket_inputs(affine(pts), digits, 2)
-    # bucket 3 holds the six finite points of each row, bucket 0 (unread) the rest
-    assert (hi - lo)[:, 2].tolist() == [6, 6]
-    assert (hi - lo)[:, :2].sum().item() == 0
+    px, py, order, sd, start = M.bucket_inputs(affine(pts), digits)
+    # the infinity points sort first with digit 0 (no bucket), the six
+    # finite points of each row follow in bucket 3
+    assert start.tolist() == [2, 2]
+    assert (sd[:, :2] == 0).all() and (sd[:, 2:] == 3).all()
+    assert order[:, :2].tolist() == [[1, 5], [1, 5]]
+
+
+@pytest.mark.parametrize("tile", [32, 4])
+def test_h3_walk_counts(tile, monkeypatch):
+    """H3's walk output (plain version): a tile's thread makes one mixed add
+    per position but its first, less the runs starting there, so a row of
+    one repeated digit gives every full tile TILE - 1 and no more."""
+    monkeypatch.setattr(M, "TILE", tile)
+    n = 101
+    rng = np.random.default_rng(tile)
+    digits = np.stack([np.full(n, 5), np.zeros(n), rng.integers(0, 128, size=n)])
+    args = M.bucket_inputs(affine(points(n)), torch.from_numpy(digits.astype(np.int32)))
+    tpr = -(-n // tile)
+    walk = torch.empty(3 * tpr, dtype=torch.int32)
+    M.bucket_sums_plain(*args, 127, walk=walk)
+    w = walk.reshape(3, tpr).tolist()
+    full, rest = divmod(n, tile)
+    assert w[0] == [tile - 1] * full + ([rest - 1] if rest else [])
+    assert w[1] == [0] * tpr
+    sd, st = args[3][2].tolist(), int(args[4][2])
+    want = [sum(sd[p] == sd[p - 1] for p in range(p0 + 1, min(p0 + tile, n)))
+            if p0 < n else 0 for p0 in range(st, st + tpr * tile, tile)]
+    assert w[2] == want and max(w[2]) <= tile - 1
+
+
+def skewed_row(case, n, rng):
+    """One digit row (c = 7) of a skewed kind, and the infinity points."""
+    T = M.TILE
+    row = rng.integers(1, 128, size=n)
+    inf = ()
+    if case == "repeated":
+        row[:] = 5
+    elif case == "zero":
+        row[:] = 0
+    elif case == "run_of_T":          # a zero prefix, then runs of exactly T
+        row = np.concatenate([[0] * 3, [1] * T, [2] * T, rng.integers(3, 128, size=n - 3 - 2 * T)])
+    elif case == "run_of_T_plus_1":   # crosses a tile edge
+        row = np.concatenate([[4] * (T + 1), rng.integers(5, 128, size=n - T - 1)])
+    elif case == "runs_of_1":
+        row = rng.permutation(127)[:n] + 1
+    elif case == "infinity":
+        inf = (0, 7, n - 1)
+        row[list(inf)] = 9
+    return row, inf
+
+
+@pytest.mark.parametrize("tile", [32, 4])
+@pytest.mark.parametrize("case,n", [("repeated", 101), ("zero", 101), ("run_of_T", 101),
+                                    ("run_of_T_plus_1", 101), ("runs_of_1", 101),
+                                    ("infinity", 101), ("n_not_multiple_of_T", 70)])
+def test_bucket_sums_skewed(case, n, tile, monkeypatch):
+    """H3's plain version on skewed rows (with a random row beside): every
+    bucket sum equals the sum of its points by the definition, and H4's
+    row sums equal the host C MSM. Tiles of 4 force several combine levels."""
+    monkeypatch.setattr(M, "TILE", tile)
+    rng = np.random.default_rng(len(case) + n + tile)
+    row, inf = skewed_row(case, n, rng)
+    pts = points(n, inf=inf)
+    digits = np.stack([row, rng.integers(0, 128, size=n)]).astype(np.int32)
+    args = M.bucket_inputs(affine(pts), torch.from_numpy(digits))
+    buckets = M.bucket_sums_plain(*args, 127)
+    got = CU.decode_points(tuple(a.reshape(-1, 8) for a in buckets))
+    for r in range(2):
+        want = [None] * 127
+        for d, p in zip(digits[r].tolist(), pts):
+            if d and p is not None:
+                want[d - 1] = CH.add(want[d - 1], p)
+        assert got[r * 127:(r + 1) * 127] == want
+    sums = CU.decode_points(M.weighted_sums(buckets, 7))
+    assert sums == [CH.msm([int(d) for d in digits[r]], pts) for r in range(2)]
 
 
 @pytest.mark.parametrize("n", [65, 100])
@@ -133,8 +214,7 @@ def test_msm_stage_accumulators():
         Timer.acc_reset()
     assert got == CH.msm(xs, pts)
     assert labels == {f"commit/msm.{s}" for s in (
-        "window_digits", "sort_and_bounds", "h3_bucket_sums", "h4_weighted_shares",
-        "share_reduction", "horner")}
+        "window_digits", "sort_and_bounds", "h3_bucket_sums", "h4_weighted_sums", "horner")}
 
 
 def test_msm_matches_jax():
@@ -184,13 +264,20 @@ def cuda():
 def test_h3_h4_kernels_match_plain(cuda):
     pts = points(300, inf=(9,))
     aff = tuple(a.to(cuda) for a in affine(pts))
-    digits = torch.from_numpy(RNG.integers(0, 128, size=(6, 300)).astype(np.int32)).to(cuda)
-    args = M.bucket_inputs(aff, digits, 7)
-    k3 = M.launch_msm_bucket(*args)
-    assert all(torch.equal(a, b) for a, b in zip(k3, M.bucket_sums_plain(*args)))
-    seglen, nseg = M._segments(127)
-    k4 = M.launch_msm_weighted(k3, seglen, nseg)
-    assert all(torch.equal(a, b) for a, b in zip(k4, M.weighted_shares_plain(k3, seglen, nseg)))
+    digits = RNG.integers(0, 128, size=(8, 300)).astype(np.int32)
+    digits[6] = 77    # one repeated digit: a run across every tile of the row
+    digits[7] = 0
+    args = M.bucket_inputs(aff, torch.from_numpy(digits).to(cuda))
+    walk, walk_plain = (torch.empty(8 * -(-300 // M.TILE), dtype=torch.int32, device=cuda)
+                        for _ in range(2))
+    k3 = M.launch_msm_bucket(*args, 127, walk=walk)
+    assert all(torch.equal(a, b) for a, b in zip(k3, M.bucket_sums_plain(*args, 127,
+                                                                         walk=walk_plain)))
+    assert torch.equal(walk, walk_plain) and int(walk.max()) == M.TILE - 1
+    lg = M.seglen_log2(127)
+    k4 = M.launch_msm_weighted(k3, lg)
+    assert all(torch.equal(a, b) for a, b in zip(k4, M.weighted_sums_plain(k3, lg)))
+    assert CU.decode_points(k4)[6] == CH.msm([77] * 300, pts)
     xs = scalars(300, 9)
     got = CU.decode_points(tuple(a.unsqueeze(0) for a in M.msm(aff, F.encode_canonical(xs, cuda))))
     assert got[0] == CH.msm(xs, pts)

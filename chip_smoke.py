@@ -12,8 +12,12 @@ Phases, each printing one JSON line (``"phase": ...``):
             the shapes the 2^20 SNARK gives it, bit for bit (tolerance 0:
             all arithmetic is exact mod p), and the MSM against the host C
             MSM; each kernel's time beside its bound and its plain version's;
+            H2's Horner ladder at the prove's two MSM shapes and its
+            double-and-add;
             H3's tile, the most mixed adds one of its threads makes (at most
-            the tile, however long a run) and H3/H4's registers per thread;
+            the tile, however long a run); S2 also at a mid-size round;
+            every kernel's registers and stack from its build, and the SASS
+            of H1's Montgomery product (``cuobjdump``);
 4. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
             (the SNARK below runs the same R1CSProof at 2^20);
 5. snark    SNARKGens, SNARK.encode / prove / verify of a synthetic
@@ -22,7 +26,9 @@ Phases, each printing one JSON line (``"phase": ...``):
             as ``<phase>/msm.<stage>`` accumulators), proof bytes, peak
             device memory,
             every kernel's launch count in the prove (all eight must
-            launch), and a corrupted proof rejected;
+            launch) with its summed device and wrapper host time, H2's
+            launches by entry, call site and size, and a corrupted proof
+            rejected;
 6. cross    with the host-path thresholds lowered so the device paths run,
             the NIZK at 2^10 and the SNARK at 2^8 made on the card equal
             the CPU ones, and the card's runs launched the kernels, the CPU
@@ -54,7 +60,7 @@ MONT = 8 * (16 + 1 + 16)
 PADD_M, PADD_MIXED_M, PDBL_M = 12, 11, 8   # Montgomery products per formula
 
 FIELD_N = 1 << 20    # H1 check: the largest table the sumchecks fold
-POINTS_N = 1 << 16   # H2 check
+POINTS_N = 1 << 16   # H2 padd/pdbl check
 SNARK_LOG2 = 20      # constraints = variables, the keyless scale of bench_e2e_20.json;
                      # its witness commit is 2^10 rows x 2^10 + 1 points
 # its derefs commit: 2^12 rows x 2^13 + 1 points, of which 1024 rows are zero
@@ -66,6 +72,14 @@ DEREFS_ROWS, DEREFS_COLS, DEREFS_ZERO_REP = 1 << 12, 1 << 13, (1024, 1280)
 # tables, phase 2 2^21
 SC_PROD_N, SC_PAR, SC_SEQ = 1 << 21, 12, 6
 SC_ADD_N, SC_QUAD_N = 1 << 20, 1 << 21
+SC_PROD_MID_N = 1 << 15  # a mid-size product round, where launches start to count
+# H2's Horner ladder in the prove: commit_rows cuts the derefs commit's 4096
+# rows into 5 MSMs of at most 820 rows (ROWS_BUDGET), c = 10, 26 windows;
+# the witness commit is one MSM of 1024 rows, c = 7, 37 windows
+HORNER_SHAPES = (("derefs commit MSM", 820, 10), ("witness commit MSM", 1 << 10, 7))
+# H2's double-and-add: a bullet fold of 2^14 generators, the first size the
+# bullet reductions keep on the card (above hostpath.HOST_MSM_N)
+SCALAR_MUL_N = 1 << 14
 NIZK_LOG2 = 16       # the NIZK alone
 CROSS_LOG2 = 10      # card-vs-CPU NIZK comparison
 CROSS_SNARK_LOG2 = 8  # card-vs-CPU SNARK comparison
@@ -140,10 +154,14 @@ def main() -> int:
               for name, (src, rep) in SOURCES.items()}
     check_kernels(torch, dev, report)
     check_sumcheck_kernels(torch, dev, report)
+    for name in SOURCES:
+        report[name]["ptxas"] = K.ptxas(name)
+    emit({"phase": "registers", "ptxas": {n: report[n]["ptxas"] for n in SOURCES}})
     run_nizk(torch, NIZK_LOG2)
-    counts = run_snark(torch, SNARK_LOG2)
+    counts, totals = run_snark(torch, SNARK_LOG2)
     for name, n in counts.items():
         report[name]["launches"] = n
+        report[name]["prove_device_ms"] = totals[name]["device_ms"]
     run_cross(torch, CROSS_LOG2, CROSS_SNARK_LOG2)
 
     emit({"kernels": list(report.values())})
@@ -272,6 +290,10 @@ def check_kernels(torch, dev, report) -> None:
         h1["detail"][f"{spec.name}.mul_scalar_broadcast.err"] = err
         if err:
             raise AssertionError(f"H1 {spec.name} scalar broadcast: kernel != plain")
+    # the SASS of the mul instantiations: one fe_mul plus the thread's index,
+    # loads and stores
+    h1["detail"]["sass_mul"] = {fn: v for fn, v in K.sass(K.so_path("field_ew")).items()
+                                if "field_ew_kernelILi0E" in fn}
     main_op = h1["detail"]["Fr.mul"]
     bms, by = bound(96 * n, MONT * n)
     report["field_ew"].update(max_abs_err=h1["max_abs_err"], match=True, ms=main_op["ms"],
@@ -326,12 +348,69 @@ def check_kernels(torch, dev, report) -> None:
     pms_dbl = cuda_ms(torch, lambda: CU.pdbl_plain(P), 2)
     bms, bby = bound(9 * 32 * npts, PADD_M * MONT * npts)
     dbms, _ = bound(6 * 32 * npts, PDBL_M * MONT * npts)
-    report["curve_ew"].update(max_abs_err=0, match=True, ms=t_add["ms"],
-                              ms_spread=[t_add["min_ms"], t_add["max_ms"]],
-                              plain_ms=pms_add, bound_ms=bms, bound_by=bby,
-                              shape=f"padd, {npts} points",
-                              detail={"pdbl": t_dbl, "pdbl_plain_ms": pms_dbl,
-                                      "pdbl_bound_ms": dbms})
+    detail = {"padd_2^16": {**t_add, "plain_ms": pms_add, "bound_ms": bms, "bound_by": bby},
+              "pdbl_2^16": {**t_dbl, "plain_ms": pms_dbl, "bound_ms": dbms}}
+    del R2
+
+    # the Horner ladder at the prove's shapes: window sums with identities
+    # and one repeated point among random multiples
+    def points_like(n):
+        ia = torch.randint(0, 256, (n,), device=dev, generator=gen)
+        z = rand_canon(torch, F.FQ, n, gen)
+        z[:3] = F.fq.one((3,), dev)
+        pts = [F.fq.mul(c, z) for c in (bx[ia], by_[ia], F.fq.one((n,), dev))]
+        for c in (pts[0], pts[2]):
+            c[: n // 16] = 0
+        return tuple(pts)
+
+    for label, rows, c in HORNER_SHAPES:
+        W = -(-254 // c)
+        win = tuple(a.reshape(W, rows, 8).contiguous() for a in points_like(W * rows))
+        got = CU.horner(win, c)
+        want, pms = cuda_once(torch, lambda: CU.horner_plain(win, c))
+        err = diff(torch, got, want)
+        if err:
+            raise AssertionError(f"H2 horner ({label}): kernel != plain ({err})")
+        out = CU._empty_point((rows, 8), dev)
+        args = [a.data_ptr() for a in win] + [W, c, rows] + [o.data_ptr() for o in out] + [stream]
+        timed = launch_ms(torch, "curve_ew", lambda: lib.curve_horner_launch(*args),
+                          launches=10, repeats=5)
+        ops = (W - 1) * (c + 1)  # point operations in each thread's chain
+        hb, hby = bound(96 * W * rows + 96 * rows,
+                        rows * (W - 1) * (c * PDBL_M + PADD_M) * MONT)
+        detail[f"horner, {label}"] = {
+            **timed, "plain_ms": pms, "bound_ms": hb, "bound_by": hby,
+            "shape": f"{rows} rows x {W} windows, c={c}", "chain_point_ops": ops,
+            "us_per_chain_op": timed["ms"] * 1e3 / ops}
+        del win, got, want, out
+
+    # the double-and-add of a bullet fold round (two scalars, as there)
+    n = SCALAR_MUL_N
+    Pm = points_like(n)
+    two = rand_canon(torch, F.FR, 8, gen)[5:7]
+    sc = two[(torch.arange(n, device=dev) >= n // 2).long()].contiguous()
+    sc[0] = 0
+    got = CU.scalar_mul(sc, Pm)
+    want, pms = cuda_once(torch, lambda: CU.scalar_mul_plain(sc, Pm))
+    err = diff(torch, got, want)
+    if err:
+        raise AssertionError(f"H2 scalar_mul: kernel != plain ({err})")
+    args = [sc.data_ptr(), 254] + [a.data_ptr() for a in Pm] + [n] + \
+        [o.data_ptr() for o in got] + [stream]
+    timed = launch_ms(torch, "curve_ew", lambda: lib.curve_scalar_mul_launch(*args),
+                      launches=5, repeats=5)
+    sb, sby = bound(32 * n + 96 * n * 2, n * 254 * (PDBL_M + PADD_M) * MONT)
+    detail["scalar_mul"] = {**timed, "plain_ms": pms, "bound_ms": sb, "bound_by": sby,
+                            "shape": f"{n} points, 254 bits"}
+    del Pm, sc, got, want
+
+    main = detail["horner, derefs commit MSM"]
+    report["curve_ew"].update(max_abs_err=0, match=True, ms=main["ms"],
+                              ms_spread=[main["min_ms"], main["max_ms"]],
+                              plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                              bound_by=main["bound_by"],
+                              shape=f"Horner ladder, {main['shape']} (the prove's H2 launch)",
+                              detail=detail)
     emit({"phase": "kernels", "kernel": "curve_ew", **report["curve_ew"]})
 
     # -- H3 + H4 at the two shapes of the 2^20 SNARK prove. The witness
@@ -515,6 +594,9 @@ def check_sumcheck_kernels(torch, dev, report) -> None:
            MONT * (nP * 5 * n // 2 + nS * 3 * n),
            ["evals only", "fold + evals, shared C", "fold + evals, own C"])
     del got, Cm, Cs, A, B
+    report["sc_round_prod"]["mid_round"] = prod_round_ms(torch, dev, gen, SC_PROD_MID_N)
+    emit({"phase": "kernels", "kernel": "sc_round_prod", "mid_round":
+          report["sc_round_prod"]["mid_round"]})
     lib1 = K.lib("sc_fold")
     ptrs1 = SK._ptrs([Cp, Cpf])
     nb1 = SK._nblocks(n // 2, 1)
@@ -546,6 +628,41 @@ def check_sumcheck_kernels(torch, dev, report) -> None:
                pms, 32 * k * n * 3 // 2, MONT * muls,
                ["evals only", "fold + evals"])
         del T, got
+
+
+def prod_round_ms(torch, dev, gen, n: int) -> dict:
+    """S2's fold + evals step on the leaf layer's 18 instances at n entries
+    each, against its plain version, timed as raw launches."""
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.ops import sumcheck_kernels as SK
+
+    nP, nS = SC_PAR, SC_SEQ
+    I = nP + nS
+    A, B = ([rand_canon(torch, F.FR, n, gen) for _ in range(I)] for _ in range(2))
+    Cm = [rand_canon(torch, F.FR, n // 2, gen)] * nP + \
+        [rand_canon(torch, F.FR, n, gen) for _ in range(nS)]
+    r = rand_canon(torch, F.FR, 8, gen)[6]
+    fold_c = [False] * nP + [True] * nS
+    got = SK.prod_step(A, B, Cm, r, fold_c)
+    want, pms = cuda_once(torch, lambda: SK.prod_step_plain(A, B, Cm, r, fold_c))
+    err = max(diff(torch, a, b) for a, b in zip(_flat(got), _flat(want)))
+    if err:
+        raise AssertionError(f"sc_round_prod at {n}: kernel != plain ({err})")
+    q = n // 4
+    nb = SK._nblocks(q, I)
+    part = torch.empty((I, nb, 3, 8), dtype=torch.int32, device=dev)
+    ptrs = SK._ptrs(A + B + Cm + got[0] + got[1] + got[2])
+    lib = K.lib("sc_round_prod")
+    timed = launch_ms(torch, "sc_round_prod",
+                      lambda: lib.sc_round_prod_launch(1, ptrs, I, r.data_ptr(), q, nb,
+                                                       part.data_ptr(), K.stream(dev)),
+                      launches=100, repeats=5)
+    wrapper = cuda_ms(torch, lambda: SK.prod_step(A, B, Cm, r, fold_c), 20)
+    bms, by = bound(32 * (2 * n * I + n // 2 + nS * n + n // 2 * (2 * I + nS)),
+                    MONT * (nP * 5 * n // 2 + nS * 3 * n))
+    return {**timed, "wrapper_ms": wrapper, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "shape": f"fold + evals, {nP} shared-C + {nS} own-C instances, {n} entries each"}
 
 
 def _flat(x) -> list:
@@ -618,9 +735,11 @@ def run_nizk(torch, log2: int) -> dict:
           "prove_phases": phases, "prove_acc": acc})
 
 
-def run_snark(torch, log2: int) -> dict:
+def run_snark(torch, log2: int) -> tuple:
     """The main path: encode, prove, verify a 2^log2 SNARK on the card.
-    Returns every kernel's launch count in the prove."""
+    Returns every kernel's launch count in the prove and its totals
+    ({"launches", "device_ms", "host_ms"}: the wrapper calls' CUDA-event
+    and host times, recorded while Timer collects)."""
     from spartan_tpu_torch.io.keyless_bench import synthetic
     from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops.fields_host import FR_MOD
@@ -668,7 +787,17 @@ def run_snark(torch, log2: int) -> dict:
     counts = K.counts()
     prove_phases = phases()
     acc = accumulators()
+    launches = K.timings()
     Timer.collect(False)
+    totals = {name: {"launches": 0, "device_ms": 0.0, "host_ms": 0.0} for name in counts}
+    for row in launches:
+        t = totals[row["kernel"]]
+        t["launches"] += row["launches"]
+        t["device_ms"] += row["device_ms"]
+        t["host_ms"] += row["host_ms"]
+    if any(totals[k]["launches"] != v for k, v in counts.items()):
+        raise AssertionError(f"timed launches {totals} != counted launches {counts}")
+    h2 = [row for row in launches if row["kernel"] == "curve_ew"]
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
@@ -695,10 +824,11 @@ def run_snark(torch, log2: int) -> dict:
           "verify_s": verify_s, "proof_bytes": len(raw),
           "proof_sha256": hashlib.sha256(raw).hexdigest(),
           "encode_peak_device_bytes": encode_peak, "prove_peak_device_bytes": peak,
-          "launches": counts, "corrupted_rejected": True,
+          "launches": counts, "kernel_totals": totals, "h2_launches": h2,
+          "corrupted_rejected": True,
           "encode_phases": encode_phases, "encode_acc": encode_acc,
           "prove_phases": prove_phases, "prove_acc": acc})
-    return counts
+    return counts, totals
 
 
 def run_cross(torch, log2: int, snark_log2: int) -> None:

@@ -4,16 +4,31 @@
 // R = 2^256 (the int32 [..., 8] tensors of spartan_tpu_torch). They
 // replace the in-kernel blocks of spartan_tpu/ops/pallas_field.py:
 //   fe_add / fe_sub  <- _add_block / _sub_block (:68, :73)
-//   fe_mul           <- _mont_mul_cios_block (:87-142), CIOS with 32x32->64
-//                       products instead of the TPU's 16-bit limbs
+//   fe_mul           <- _mont_mul_cios_block (:87-142), CIOS on 32-bit words
+//                       instead of the TPU's 16-bit limbs
 //   padd             <- _padd_block_narrow (:332)   RCB 2016 Alg 7, a = 0
 //   padd_mixed       <- _padd_mixed_block_narrow (:361)   Alg 8
 //   pdbl             <- _pdbl_block_narrow (:389)   Alg 9
 // Every function returns canonical limbs (< p), so results are bit-exact
 // with the plain PyTorch versions beside each kernel's wrapper.
 //
-// The header also compiles as plain C++ (no __CUDACC__), so the arithmetic
-// can be checked on a host without a GPU.
+// Carry chains. The multiword adds, subtracts and the Montgomery product
+// are written with the PTX carry-flag instructions (add.cc / addc.cc,
+// sub.cc / subc.cc, mad.lo.cc / madc.hi.cc, in namespace cc below): the
+// sums ride the carry flag along a row, with no 64-bit temporaries, shifts
+// or compares.
+// Each cc function is one volatile asm statement, so nvcc keeps their order
+// and a chain's flag passes from one to the next (only .cc instructions
+// touch it).
+//
+// The host build. The header also compiles as plain C++ (no __CUDACC__):
+// there the cc functions emulate the same instructions with a thread-local
+// carry flag, so a host program runs exactly the sequence of word
+// operations the device runs (the CPU tests compile it and hold it against
+// the plain versions). What the host build cannot check is the PTX itself;
+// chip_smoke.py holds every kernel against its plain version on the card.
+// This is a split of the build, not a runtime choice: a CUDA build has
+// only the PTX form.
 #pragma once
 #include <stdint.h>
 
@@ -49,99 +64,196 @@ struct Fe {
   uint32_t v[8];
 };
 
+// One 32-bit PTX instruction each; CF is the carry flag (a borrow for the
+// subtracts). *_cc set CF, *c* read it.
+namespace cc {
+#if defined(__CUDACC__)
+#define BN_CC2(fn, ins)                                                  \
+  __device__ __forceinline__ uint32_t fn(uint32_t a, uint32_t b) {      \
+    uint32_t d;                                                          \
+    asm volatile(ins " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));         \
+    return d;                                                            \
+  }
+#define BN_CC3(fn, ins)                                                        \
+  __device__ __forceinline__ uint32_t fn(uint32_t a, uint32_t b, uint32_t c) { \
+    uint32_t d;                                                                \
+    asm volatile(ins " %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));   \
+    return d;                                                                  \
+  }
+BN_CC2(add_cc, "add.cc.u32")          // a + b
+BN_CC2(addc_cc, "addc.cc.u32")        // a + b + CF
+BN_CC2(addc, "addc.u32")              // a + b + CF, CF kept
+BN_CC2(sub_cc, "sub.cc.u32")          // a - b
+BN_CC2(subc_cc, "subc.cc.u32")        // a - b - CF
+BN_CC2(subc, "subc.u32")              // a - b - CF, CF kept
+BN_CC3(mad_lo_cc, "mad.lo.cc.u32")    // lo(a b) + c
+BN_CC3(madc_lo_cc, "madc.lo.cc.u32")  // lo(a b) + c + CF
+BN_CC3(mad_hi_cc, "mad.hi.cc.u32")    // hi(a b) + c
+BN_CC3(madc_hi_cc, "madc.hi.cc.u32")  // hi(a b) + c + CF
+BN_CC3(madc_hi, "madc.hi.u32")        // hi(a b) + c + CF, CF kept
+#undef BN_CC2
+#undef BN_CC3
+#else
+inline uint32_t& flag() {
+  static thread_local uint32_t cf = 0;
+  return cf;
+}
+inline uint32_t put(uint64_t s) {
+  flag() = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+inline uint32_t borrow(uint64_t d) {
+  flag() = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+}
+inline uint32_t lo(uint32_t a, uint32_t b) { return a * b; }
+inline uint32_t hi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline uint32_t add_cc(uint32_t a, uint32_t b) { return put((uint64_t)a + b); }
+inline uint32_t addc_cc(uint32_t a, uint32_t b) { return put((uint64_t)a + b + flag()); }
+inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + flag(); }
+inline uint32_t sub_cc(uint32_t a, uint32_t b) { return borrow((uint64_t)a - b); }
+inline uint32_t subc_cc(uint32_t a, uint32_t b) { return borrow((uint64_t)a - b - flag()); }
+inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - flag(); }
+inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) { return add_cc(lo(a, b), c); }
+inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) { return addc_cc(lo(a, b), c); }
+inline uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) { return add_cc(hi(a, b), c); }
+inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) { return addc_cc(hi(a, b), c); }
+inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) { return addc(hi(a, b), c); }
+#endif
+}  // namespace cc
+
 template <class F>
 BN_DEV void load_p(uint32_t p[8]) {
   p[0] = F::P0; p[1] = F::P1; p[2] = F::P2; p[3] = F::P3;
   p[4] = F::P4; p[5] = F::P5; p[6] = F::P6; p[7] = F::P7;
 }
 
-// r = s - p if s >= p else s (s < 2p)
+// r = s - p if s >= p else s (s < 2p): one borrow chain, then a select by
+// mask (no branch)
 template <class F>
 BN_DEV void cond_sub_p(uint32_t r[8], const uint32_t s[8]) {
   uint32_t p[8];
   load_p<F>(p);
   uint32_t d[8];
-  uint64_t borrow = 0;
+  d[0] = cc::sub_cc(s[0], p[0]);
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t t = (uint64_t)s[i] - p[i] - borrow;
-    d[i] = (uint32_t)t;
-    borrow = t >> 63;
-  }
+  for (int i = 1; i < 8; i++) d[i] = cc::subc_cc(s[i], p[i]);
+  const uint32_t keep = cc::subc(0, 0);  // all ones iff s < p
 #pragma unroll
-  for (int i = 0; i < 8; i++) r[i] = borrow ? s[i] : d[i];
+  for (int i = 0; i < 8; i++) r[i] = (s[i] & keep) | (d[i] & ~keep);
 }
 
 template <class F>
 BN_DEV void fe_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   uint32_t s[8];
-  uint64_t c = 0;
+  s[0] = cc::add_cc(a[0], b[0]);
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    c += (uint64_t)a[i] + b[i];
-    s[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  // a + b < 2p < 2^255: no carry out of the top limb
+  for (int i = 1; i < 7; i++) s[i] = cc::addc_cc(a[i], b[i]);
+  s[7] = cc::addc(a[7], b[7]);  // a + b < 2p < 2^255: no carry out
   cond_sub_p<F>(r, s);
 }
 
+// a - b, plus p (masked by the borrow) when a < b
 template <class F>
 BN_DEV void fe_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   uint32_t d[8];
-  uint64_t borrow = 0;
+  d[0] = cc::sub_cc(a[0], b[0]);
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t t = (uint64_t)a[i] - b[i] - borrow;
-    d[i] = (uint32_t)t;
-    borrow = t >> 63;
-  }
+  for (int i = 1; i < 8; i++) d[i] = cc::subc_cc(a[i], b[i]);
+  const uint32_t mask = cc::subc(0, 0);
   uint32_t p[8];
   load_p<F>(p);
-  const uint32_t mask = borrow ? 0xffffffffu : 0u;
-  uint64_t c = 0;
+  r[0] = cc::add_cc(d[0], p[0] & mask);
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    c += (uint64_t)d[i] + (p[i] & mask);
-    r[i] = (uint32_t)c;
-    c >>= 32;
+  for (int i = 1; i < 7; i++) r[i] = cc::addc_cc(d[i], p[i] & mask);
+  r[7] = cc::addc(d[7], p[7] & mask);
+}
+
+// Montgomery product a*b*R^-1 mod p: CIOS over 8 words (one row per word
+// b_i: T += a * b_i, then T = (T + m p) / 2^32 with m = T mod 2^32 *
+// (-p^-1)), in the even/odd form of supranational's sppark
+// (ff/mont_t.cuh). T is held in two accumulators, X with word k at X[k]
+// and Y one word up: the products of the even words a_0, a_2, .. go to X
+// and those of the odd words to Y, in chains of lo, hi pairs of one
+// product (ptxas makes each pair one IMAD.WIDE.U32.X, a wide multiply-add
+// with carry in and out). Dividing by 2^32 leaves Y aligned and X a word
+// down, so the two swap roles every row: the next row first adds X's
+// lowest live word into Y's first (Y[0] += X[1]) and moves X down two
+// words while it adds the odd products (madc_n_rshift), which keeps every
+// register pair aligned. On the H100 this takes 200 SASS instructions a
+// product against 530 for the same CIOS in portable C with 64-bit
+// products, and 345 with both chains on one accumulator, whose pairs
+// ptxas had to realign with moves (tools/torch_mont_probe.py, nvcc 12.8).
+// With a, b < p and p < 2^254 every row's T stays below 2^288 and the
+// result below 2p, so one conditional subtraction makes it canonical.
+
+// acc[j], acc[j + 1] += lo, hi of a[j] * bi for j = 0, 2, 4, 6: one
+// chain, its carry out left in CF
+BN_DEV void cmad_n(uint32_t acc[8], const uint32_t* a, uint32_t bi) {
+  acc[0] = cc::mad_lo_cc(a[0], bi, acc[0]);
+  acc[1] = cc::madc_hi_cc(a[0], bi, acc[1]);
+#pragma unroll
+  for (int j = 2; j < 8; j += 2) {
+    acc[j] = cc::madc_lo_cc(a[j], bi, acc[j]);
+    acc[j + 1] = cc::madc_hi_cc(a[j], bi, acc[j + 1]);
   }
 }
 
-// Montgomery product a*b*R^-1 mod p, CIOS over 8 words. With a, b < p and
-// p < 2^254 the running sum stays below 2p < 2^256, so t[8] ends at 0.
+// acc[j], acc[j + 1] = lo, hi of a[j] * bi + acc[j + 2], acc[j + 3] + CF:
+// goes on with the chain in CF and moves acc down two words
+BN_DEV void madc_n_rshift(uint32_t acc[8], const uint32_t* a, uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < 6; j += 2) {
+    acc[j] = cc::madc_lo_cc(a[j], bi, acc[j + 2]);
+    acc[j + 1] = cc::madc_hi_cc(a[j], bi, acc[j + 3]);
+  }
+  acc[6] = cc::madc_lo_cc(a[6], bi, 0);
+  acc[7] = cc::madc_hi(a[6], bi, 0);
+}
+
+// One row. On entry T = X + Y 2^32 after Y[1] joins X[0] (X[k] at word
+// k, Y[k] at word k + 1 once moved down); on exit X[0] = 0 and T = X +
+// Y 2^32 with Y[k] at word k + 1. X's carry out of word 7 lands in Y[7].
+template <class F>
+BN_DEV void mad_n_redc(uint32_t X[8], uint32_t Y[8], const uint32_t a[8], uint32_t bi,
+                       const uint32_t p[8], bool first) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      const uint64_t e = (uint64_t)a[j] * bi, o = (uint64_t)a[j + 1] * bi;
+      X[j] = (uint32_t)e;
+      X[j + 1] = (uint32_t)(e >> 32);
+      Y[j] = (uint32_t)o;
+      Y[j + 1] = (uint32_t)(o >> 32);
+    }
+  } else {
+    X[0] = cc::add_cc(X[0], Y[1]);
+    madc_n_rshift(Y, a + 1, bi);
+    cmad_n(X, a, bi);
+    Y[7] = cc::addc(Y[7], 0);
+  }
+  const uint32_t m = X[0] * F::INV;
+  cmad_n(Y, p + 1, m);
+  cmad_n(X, p, m);
+  Y[7] = cc::addc(Y[7], 0);
+}
+
 template <class F>
 BN_DEV void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   uint32_t p[8];
   load_p<F>(p);
-  uint32_t t[10];
+  uint32_t even[8], odd[8];
 #pragma unroll
-  for (int i = 0; i < 10; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      c += (uint64_t)a[j] * b[i] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[8] = (uint32_t)c;
-    t[9] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * F::INV;
-    c = ((uint64_t)m * p[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; j++) {
-      c += (uint64_t)m * p[j] + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[7] = (uint32_t)c;
-    t[8] = t[9] + (uint32_t)(c >> 32);
+  for (int i = 0; i < 8; i += 2) {
+    mad_n_redc<F>(even, odd, a, b[i], p, i == 0);
+    mad_n_redc<F>(odd, even, a, b[i + 1], p, false);
   }
-  cond_sub_p<F>(r, t);
+  // after the last row: word k of T / 2^32 is even[k] + odd[k + 1]
+  even[0] = cc::add_cc(even[0], odd[1]);
+#pragma unroll
+  for (int k = 1; k < 7; k++) even[k] = cc::addc_cc(even[k], odd[k + 1]);
+  even[7] = cc::addc(even[7], 0);
+  cond_sub_p<F>(r, even);
 }
 
 template <class F>
@@ -258,6 +370,17 @@ BN_DEV Point pdbl(const Point& P) {
   return Point{add<Fq>(x3b, x3b), add<Fq>(x3a, y3b), Z3};
 }
 
+// a = b where mask is all ones, else a unchanged (mask 0): word by word,
+// so no Point is addressed and nothing goes to local memory
+BN_DEV void select_point(Point& a, const Point& b, uint32_t mask) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    a.X.v[k] = (b.X.v[k] & mask) | (a.X.v[k] & ~mask);
+    a.Y.v[k] = (b.Y.v[k] & mask) | (a.Y.v[k] & ~mask);
+    a.Z.v[k] = (b.Z.v[k] & mask) | (a.Z.v[k] & ~mask);
+  }
+}
+
 #if defined(__CUDACC__)
 // one element = two 16-byte words; callers guarantee 16-byte alignment
 __device__ __forceinline__ Fe load_fe(const uint4* __restrict__ p) {
@@ -269,19 +392,60 @@ __device__ __forceinline__ void store_fe(uint4* __restrict__ p, const Fe& a) {
   p[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
   p[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
 }
+#else
+// host build: V is any struct of four uint32_t x, y, z, w
+template <class V>
+inline Fe load_fe(const V* p) {
+  return Fe{{p[0].x, p[0].y, p[0].z, p[0].w, p[1].x, p[1].y, p[1].z, p[1].w}};
+}
 
-__device__ __forceinline__ Point load_point(const uint4* x, const uint4* y,
-                                            const uint4* z, long long i) {
+template <class V>
+inline void store_fe(V* p, const Fe& a) {
+  p[0].x = a.v[0]; p[0].y = a.v[1]; p[0].z = a.v[2]; p[0].w = a.v[3];
+  p[1].x = a.v[4]; p[1].y = a.v[5]; p[1].z = a.v[6]; p[1].w = a.v[7];
+}
+#endif
+
+template <class V>
+BN_DEV Point load_point(const V* x, const V* y, const V* z, long long i) {
   return Point{load_fe(x + 2 * i), load_fe(y + 2 * i), load_fe(z + 2 * i)};
 }
 
-__device__ __forceinline__ void store_point(uint4* x, uint4* y, uint4* z,
-                                            long long i, const Point& P) {
+template <class V>
+BN_DEV void store_point(V* x, V* y, V* z, long long i, const Point& P) {
   store_fe(x + 2 * i, P.X);
   store_fe(y + 2 * i, P.Y);
   store_fe(z + 2 * i, P.Z);
 }
 
+// Horner ladder of one row of W window sums, most significant first: the
+// window sum S_w of this row is element w * stride + i. acc = S_0, then
+// for w = 1 .. W-1: c doublings and acc + S_w. One call site per formula.
+template <class V>
+BN_DEV Point horner_ladder(const V* x, const V* y, const V* z, long long i,
+                           long long stride, int W, int c) {
+  Point acc = load_point(x, y, z, i);
+  for (int w = 1; w < W; w++) {
+    for (int k = 0; k < c; k++) acc = pdbl(acc);
+    acc = padd(acc, load_point(x, y, z, (long long)w * stride + i));
+  }
+  return acc;
+}
+
+// MSB-first double-and-add of P by the scalar k (8 little-endian words,
+// bits nbits-1 .. 0): every bit costs one pdbl and one padd, and the sum
+// is taken by mask where the bit is set.
+BN_DEV Point scalar_mul_ladder(const Point& P, const uint32_t* k, int nbits) {
+  Point acc = identity();
+  for (int i = nbits - 1; i >= 0; i--) {
+    acc = pdbl(acc);
+    const Point s = padd(acc, P);
+    select_point(acc, s, 0u - ((k[i >> 5] >> (i & 31)) & 1u));
+  }
+  return acc;
+}
+
+#if defined(__CUDACC__)
 BN_DEV Fe fr_zero() { return fq_zero(); }
 
 // Fr sum over the warp, exact mod p; lane 0 holds the warp's total

@@ -8,7 +8,11 @@ Alg 7 and 9, b3 = 9): one branch-free formula covers generic adds,
 doublings, negatives and the identity. On a CUDA tensor they launch
 ``csrc/curve_ew.cu`` (H2), which replaces the JAX package's Pallas
 ``make_curve_kernels`` (``spartan_tpu/ops/pallas_field.py:500-548``); on a
-CPU tensor they run the plain PyTorch versions below.
+CPU tensor they run the plain PyTorch versions below. The two ladders
+built from them, ``horner`` (the MSM's window combine) and ``scalar_mul``
+(double-and-add), are one H2 launch each, whose plain versions are the
+loops of the plain formulas in the same order: kernel and plain version
+agree on (X:Y:Z) bit for bit.
 
 The plain versions compute the same formulas with lazy field arithmetic:
 sums and differences stay unreduced int64 columns (a difference adds a
@@ -146,18 +150,23 @@ def _check_coords(coords, n: int) -> None:
                              f"aligned and hold {n} elements")
 
 
+def _empty_point(shape, device):
+    return tuple(torch.empty(shape, dtype=torch.int32, device=device) for _ in range(3))
+
+
 def launch_padd(p, q):
     """H2 padd on equal-shaped contiguous CUDA coordinates."""
     shape = p[0].shape
     n = p[0].numel() // NUM_LIMBS
-    _check_coords(list(p) + list(q), n)
-    out = tuple(torch.empty(shape, dtype=torch.int32, device=p[0].device) for _ in range(3))
-    if n == 0:
-        return out
-    lib = K.lib("curve_ew")
-    rc = lib.curve_padd_launch(*(c.data_ptr() for c in (*p, *q, *out)), n,
-                               K.stream(p[0].device))
-    K.count("curve_ew")
+    with K.timed("curve_ew", "padd", n, p[0].device) as launch:
+        _check_coords(list(p) + list(q), n)
+        out = _empty_point(shape, p[0].device)
+        if n == 0:
+            return out
+        lib = K.lib("curve_ew")
+        rc = launch(lib.curve_padd_launch, *(c.data_ptr() for c in (*p, *q, *out)), n,
+                    K.stream(p[0].device))
+        K.count("curve_ew")
     K.check(rc, "curve_ew padd")
     return out
 
@@ -166,15 +175,59 @@ def launch_pdbl(p):
     """H2 pdbl on equal-shaped contiguous CUDA coordinates."""
     shape = p[0].shape
     n = p[0].numel() // NUM_LIMBS
-    _check_coords(list(p), n)
-    out = tuple(torch.empty(shape, dtype=torch.int32, device=p[0].device) for _ in range(3))
-    if n == 0:
-        return out
-    lib = K.lib("curve_ew")
-    rc = lib.curve_pdbl_launch(*(c.data_ptr() for c in (*p, *out)), n,
-                               K.stream(p[0].device))
-    K.count("curve_ew")
+    with K.timed("curve_ew", "pdbl", n, p[0].device) as launch:
+        _check_coords(list(p), n)
+        out = _empty_point(shape, p[0].device)
+        if n == 0:
+            return out
+        lib = K.lib("curve_ew")
+        rc = launch(lib.curve_pdbl_launch, *(c.data_ptr() for c in (*p, *out)), n,
+                    K.stream(p[0].device))
+        K.count("curve_ew")
     K.check(rc, "curve_ew pdbl")
+    return out
+
+
+def launch_horner(win, c: int):
+    """H2's Horner ladder on contiguous CUDA window sums [W, ..., 8] (most
+    significant first): one launch, one thread per row -> [..., 8]."""
+    W = win[0].shape[0]
+    shape = win[0].shape[1:]
+    B = win[0].numel() // (NUM_LIMBS * W) if W else 0
+    with K.timed("curve_ew", "horner", B, win[0].device) as launch:
+        if W == 0 or c < 0:
+            raise ValueError(f"H2 horner: {W} windows of {c} bits")
+        _check_coords(list(win), W * B)
+        out = _empty_point(shape, win[0].device)
+        if B == 0:
+            return out
+        lib = K.lib("curve_ew")
+        rc = launch(lib.curve_horner_launch, *(t.data_ptr() for t in win), W, c, B,
+                    *(o.data_ptr() for o in out), K.stream(win[0].device))
+        K.count("curve_ew")
+    K.check(rc, "curve_ew horner")
+    return out
+
+
+def launch_scalar_mul(scalars_canon, p, num_bits: int):
+    """H2's double-and-add ladder on contiguous CUDA operands: scalars
+    [..., 8] canonical, points of the same batch shape; one launch, one
+    thread per point."""
+    shape = p[0].shape
+    n = p[0].numel() // NUM_LIMBS
+    with K.timed("curve_ew", "scalar_mul", n, p[0].device) as launch:
+        _check_coords(list(p) + [scalars_canon], n)
+        if not 0 <= num_bits <= 256:
+            raise ValueError(f"H2 scalar_mul: {num_bits} bits")
+        out = _empty_point(shape, p[0].device)
+        if n == 0:
+            return out
+        lib = K.lib("curve_ew")
+        rc = launch(lib.curve_scalar_mul_launch, scalars_canon.data_ptr(), num_bits,
+                    *(c.data_ptr() for c in p), n, *(o.data_ptr() for o in out),
+                    K.stream(p[0].device))
+        K.count("curve_ew")
+    K.check(rc, "curve_ew scalar_mul")
     return out
 
 
@@ -196,6 +249,48 @@ def pdbl(p):
     if p[0].device.type == "cpu":
         return pdbl_plain(p)
     return launch_pdbl(_same_shape(list(p)))
+
+
+def horner_plain(win, c: int):
+    """Plain version of H2's Horner ladder: acc = S_0, then for each later
+    window c doublings and acc + S_w, as loops of the plain formulas."""
+    x, y, z = win
+    acc = (x[0], y[0], z[0])
+    for w in range(1, x.shape[0]):
+        for _ in range(c):
+            acc = pdbl_plain(acc)
+        acc = padd_plain(acc, (x[w], y[w], z[w]))
+    return acc
+
+
+def horner(win, c: int):
+    """Combine window sums [W, ...] (most significant first) by a Horner
+    ladder of c doublings and one addition per window."""
+    if win[0].device.type == "cpu":
+        return horner_plain(win, c)
+    return launch_horner(tuple(a.contiguous() for a in win), c)
+
+
+def scalar_mul_plain(scalars_canon, p, num_bits: int = 254):
+    """Plain version of H2's double-and-add: bits MSB first, one pdbl and
+    one padd each, the sum kept where the bit is set."""
+    words = scalars_canon.to(torch.int64) & 0xFFFFFFFF
+    acc = identity(scalars_canon.shape[:-1], scalars_canon.device)
+    for i in range(num_bits - 1, -1, -1):
+        acc = pdbl_plain(acc)
+        added = padd_plain(acc, p)
+        take = ((words[..., i // 32] >> (i % 32)) & 1) == 1
+        acc = pselect(take, added, acc)
+    return acc
+
+
+def scalar_mul(scalars_canon, p, num_bits: int = 254):
+    """Batched MSB-first double-and-add: scalars [..., 8] canonical limbs
+    (int32 bit patterns), points batched to the same leading shape."""
+    if scalars_canon.device.type == "cpu":
+        return scalar_mul_plain(scalars_canon, p, num_bits)
+    c = _same_shape([scalars_canon, *p])
+    return launch_scalar_mul(c[0], c[1:], num_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -238,19 +333,6 @@ def batch_normalize(p):
     inf = fq.is_zero(Z)
     y = torch.where(inf.unsqueeze(-1), fq.one(y.shape[:-1], y.device), y)
     return x, y, inf
-
-
-def scalar_mul(scalars_canon, p, num_bits: int = 254):
-    """Batched MSB-first double-and-add: scalars [..., 8] canonical limbs
-    (int32 bit patterns), points batched to the same leading shape."""
-    words = scalars_canon.to(torch.int64) & 0xFFFFFFFF
-    acc = identity(scalars_canon.shape[:-1], scalars_canon.device)
-    for i in range(num_bits - 1, -1, -1):
-        acc = pdbl(acc)
-        added = padd(acc, p)
-        take = ((words[..., i // 32] >> (i % 32)) & 1) == 1
-        acc = pselect(take, added, acc)
-    return acc
 
 
 # -- host <-> device point conversion ----------------------------------------

@@ -253,25 +253,25 @@ def launch_field_ew(op: str, spec: FieldSpec, a: torch.Tensor, a_step: int,
                     b: torch.Tensor, b_step: int, n: int) -> torch.Tensor:
     """Launch H1 on n elements; an operand with step 0 is one element used
     for all n (stride-0 broadcast, no copy). Returns [n, 8]."""
-    for name, t, step in (("a", a, a_step), ("b", b, b_step)):
-        _check_limbs(name, t)
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: H1 runs on CUDA tensors only")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
-        if t.numel() != (n if step else 1) * NUM_LIMBS:
-            raise ValueError(f"{name}: {t.numel() // NUM_LIMBS} elements for "
-                             f"n={n} with step {step}")
-    if a.device != b.device:
-        raise ValueError("operands on different devices")
-    out = torch.empty((n, NUM_LIMBS), dtype=torch.int32, device=a.device)
-    if n == 0:
-        return out
-    lib = K.lib("field_ew")
-    rc = lib.field_ew_launch(_OP_CODE[op], spec.code, a.data_ptr(), a_step,
-                             b.data_ptr(), b_step, out.data_ptr(), n,
-                             K.stream(a.device))
-    K.count("field_ew")
+    with K.timed("field_ew", f"{spec.name}.{op}", n, a.device) as launch:
+        for name, t, step in (("a", a, a_step), ("b", b, b_step)):
+            _check_limbs(name, t)
+            if t.device.type != "cuda":
+                raise ValueError(f"{name}: H1 runs on CUDA tensors only")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+            if t.numel() != (n if step else 1) * NUM_LIMBS:
+                raise ValueError(f"{name}: {t.numel() // NUM_LIMBS} elements for "
+                                 f"n={n} with step {step}")
+        if a.device != b.device:
+            raise ValueError("operands on different devices")
+        out = torch.empty((n, NUM_LIMBS), dtype=torch.int32, device=a.device)
+        if n == 0:
+            return out
+        lib = K.lib("field_ew")
+        rc = launch(lib.field_ew_launch, _OP_CODE[op], spec.code, a.data_ptr(), a_step,
+                    b.data_ptr(), b_step, out.data_ptr(), n, K.stream(a.device))
+        K.count("field_ew")
     K.check(rc, "field_ew")
     return out
 

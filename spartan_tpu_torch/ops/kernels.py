@@ -10,24 +10,31 @@ library, all at once, and waits for them together; ptxas's report of each
 kernel's registers and spills is kept beside the library (``ptxas``).
 
 Every wrapper that launches a kernel calls ``count(name)`` right there and
-nowhere else, so ``counts()`` says which kernels a run went through.
-Nothing here runs at import: every module must import on a machine without
-CUDA or ``nvcc``, where the kernel wrappers run their plain versions.
+nowhere else, so ``counts()`` says which kernels a run went through. Each
+wrapper's body runs inside ``timed`` and calls its C function through the
+``launch`` that ``timed`` yields: while ``Timer.collect()`` is on, that
+records the wrapper's host time and CUDA events around the launch, keyed
+by kernel, entry, call site and size (``timings``). Nothing here runs
+at import: every module must import on a machine without CUDA or
+``nvcc``, where the kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 
 import torch
 
 from spartan_tpu_torch.utils.cachedir import subdir
+from spartan_tpu_torch.utils.timer import Timer
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 HEADER = "bn254.cuh"
@@ -50,7 +57,9 @@ _U64P = ctypes.POINTER(ctypes.c_ulonglong)  # host array of device pointers
 _SIGNATURES = {
     "field_ew": {"field_ew_launch": [_I, _I, _P, _L, _P, _L, _P, _L, _P]},
     "curve_ew": {"curve_padd_launch": [_P] * 9 + [_L, _P],
-                 "curve_pdbl_launch": [_P] * 6 + [_L, _P]},
+                 "curve_pdbl_launch": [_P] * 6 + [_L, _P],
+                 "curve_horner_launch": [_P] * 3 + [_I, _I, _L] + [_P] * 4,
+                 "curve_scalar_mul_launch": [_P, _I] + [_P] * 3 + [_L] + [_P] * 4},
     "msm_bucket": {"msm_bucket_launch": [_P] * 5 + [_I] * 4 + [_P] * 7 + [_L] + [_P] * 4
                    + [_L, _P, _P]},
     "msm_weighted": {"msm_weighted_launch": [_P] * 3 + [_I, _I, _I, _L] + [_P] * 4},
@@ -62,6 +71,8 @@ _SIGNATURES = {
 
 _libs: dict = {}
 _launches = {name: 0 for name in SOURCES}
+# while Timer collects: (kernel, entry, site, n, host s, [(start, end event)])
+_timed: list = []
 
 
 def nvcc_path() -> str:
@@ -146,6 +157,27 @@ def ptxas(name: str) -> dict:
         return parse_ptxas(f.read())
 
 
+def sass(path: str) -> dict:
+    """{function: {"instructions", "opcodes": {opcode: count}}} from
+    ``cuobjdump -sass`` of a built library (NOPs not counted)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    info, fn = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            info[fn] = {"instructions": 0, "opcodes": {}}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)
+        if m and fn and m.group(1) != "NOP":
+            info[fn]["instructions"] += 1
+            ops = info[fn]["opcodes"]
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return info
+
+
 def lib(name: str):
     """The loaded library of one kernel (built on first use)."""
     h = _libs.get(name)
@@ -179,5 +211,77 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
+    """Zero the launch counts and drop the timing records."""
     for k in _launches:
         _launches[k] = 0
+    _timed.clear()
+
+
+def _site(wrapper_file: str) -> str:
+    """``module.function`` of the first frame outside this module, the
+    wrapper's module and contextlib: where the kernel was asked for."""
+    skip = {os.path.abspath(__file__), wrapper_file, os.path.abspath(contextlib.__file__)}
+    f = sys._getframe(1)
+    while f is not None and os.path.abspath(f.f_code.co_filename) in skip:
+        f = f.f_back
+    if f is None:
+        return "?"
+    mod = os.path.splitext(os.path.basename(f.f_code.co_filename))[0]
+    return f"{mod}.{f.f_code.co_name}"
+
+
+def _direct(fn, *args):
+    return fn(*args)
+
+
+class _Launches:
+    """Calls C launch functions with CUDA events on the current stream
+    right before and after each (the kernel's device time)."""
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, fn, *args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        rc = fn(*args)
+        e.record()
+        self.events.append((s, e))
+        return rc
+
+
+@contextlib.contextmanager
+def timed(name: str, entry: str, n: int, device):
+    """Around a wrapper's body (checks, allocation, launch); yields the
+    function the body calls its C launch function through,
+    ``launch(lib.fn, *args)``. While ``Timer.collect()`` is on and
+    ``device`` is a card, it records the body's host time and CUDA events
+    around the launch (read in ``timings``, so nothing synchronises here);
+    otherwise ``launch`` just calls."""
+    if not Timer.collecting() or device.type != "cuda":
+        yield _direct
+        return
+    site = _site(os.path.abspath(sys._getframe(2).f_code.co_filename))
+    launches = _Launches()
+    t = time.perf_counter()
+    yield launches
+    if launches.events:
+        _timed.append((name, entry, site, n, time.perf_counter() - t, launches.events))
+
+
+def timings() -> list:
+    """The launches recorded by ``timed`` since ``reset_counts``, summed by
+    (kernel, entry, call site, size): [{"kernel", "entry", "site", "n",
+    "launches", "device_ms", "host_ms"}], largest device time first.
+    device_ms sums the kernels' event times, host_ms the wrapper calls'."""
+    agg: dict = {}
+    for name, entry, site, n, host, events in _timed:
+        r = agg.setdefault((name, entry, site, n), [0, 0.0, 0.0])
+        for s, e in events:
+            e.synchronize()
+            r[0] += 1
+            r[1] += s.elapsed_time(e)
+        r[2] += host * 1e3
+    rows = [{"kernel": k[0], "entry": k[1], "site": k[2], "n": k[3], "launches": v[0],
+             "device_ms": v[1], "host_ms": v[2]} for k, v in agg.items()]
+    return sorted(rows, key=lambda r: -r["device_ms"])

@@ -14,8 +14,8 @@ windows of every scalar row:
   3. kernel H4 (``csrc/msm_weighted.cu``) forms sum_b b * B_b per row on
      a few lanes of a warp: a segment of buckets per lane, then a suffix
      scan, doublings and a tree over the row's lanes;
-  4. the window sums are combined by a Horner ladder of H2 doublings and
-     additions.
+  4. the window sums are combined by H2's Horner ladder (c doublings and
+     one addition per window), one launch per MSM.
 
 While ``Timer.collect()`` is on, each stage's time is accumulated under
 the innermost running Timer (``Timer.stage``). Tiny MSMs take a batched
@@ -256,37 +256,38 @@ def launch_msm_bucket(px, py, order, sd, start, nb: int, walk=None):
     N = px.shape[0]
     B = sd.shape[0]
     dev = px.device
-    checks = [("px", px, (N, NUM_LIMBS)), ("py", py, (N, NUM_LIMBS)),
-              ("order", order, (B, N)), ("sd", sd, (B, N)), ("start", start, (B,))]
-    if walk is not None:
-        checks.append(("walk", walk, (B * -(-N // TILE),)))
-    for name, t, shape in checks:
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"H3 {name}: expected int32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"H3 {name}: must be on the CUDA device {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"H3 {name}: must be contiguous and 16-byte aligned")
-    if (B * nb) << 2 >= 1 << 31:
-        raise ValueError(f"H3: {B} rows x {nb} buckets overflow the int32 piece keys")
-    out = tuple(torch.empty((B, nb, NUM_LIMBS), dtype=torch.int32, device=dev)
-                for _ in range(3))
-    if B == 0:
-        return out
-    sizes = _levels(B, N)
-    na, nbuf = sizes[0], 2 * -(-sizes[0] // TILE)
-    a = [torch.empty((na, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3)]
-    a.append(torch.empty((na,), dtype=torch.int32, device=dev))
-    b = [torch.empty((nbuf, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3)]
-    b.append(torch.empty((nbuf,), dtype=torch.int32, device=dev))
-    lib = K.lib("msm_bucket")
-    rc = lib.msm_bucket_launch(px.data_ptr(), py.data_ptr(), order.data_ptr(), sd.data_ptr(),
-                               start.data_ptr(), N, nb, B, TILE,
-                               *(o.data_ptr() for o in out), *(t.data_ptr() for t in a), na,
-                               *(t.data_ptr() for t in b), nbuf,
-                               None if walk is None else walk.data_ptr(), K.stream(dev))
-    K.count("msm_bucket")
+    with K.timed("msm_bucket", "bucket_sums", B, dev) as launch:
+        checks = [("px", px, (N, NUM_LIMBS)), ("py", py, (N, NUM_LIMBS)),
+                  ("order", order, (B, N)), ("sd", sd, (B, N)), ("start", start, (B,))]
+        if walk is not None:
+            checks.append(("walk", walk, (B * -(-N // TILE),)))
+        for name, t, shape in checks:
+            if t.dtype != torch.int32 or tuple(t.shape) != shape:
+                raise ValueError(f"H3 {name}: expected int32 {shape}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+            if t.device != dev or dev.type != "cuda":
+                raise ValueError(f"H3 {name}: must be on the CUDA device {dev}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"H3 {name}: must be contiguous and 16-byte aligned")
+        if (B * nb) << 2 >= 1 << 31:
+            raise ValueError(f"H3: {B} rows x {nb} buckets overflow the int32 piece keys")
+        out = tuple(torch.empty((B, nb, NUM_LIMBS), dtype=torch.int32, device=dev)
+                    for _ in range(3))
+        if B == 0:
+            return out
+        sizes = _levels(B, N)
+        na, nbuf = sizes[0], 2 * -(-sizes[0] // TILE)
+        a = [torch.empty((na, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3)]
+        a.append(torch.empty((na,), dtype=torch.int32, device=dev))
+        b = [torch.empty((nbuf, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3)]
+        b.append(torch.empty((nbuf,), dtype=torch.int32, device=dev))
+        lib = K.lib("msm_bucket")
+        rc = launch(lib.msm_bucket_launch, px.data_ptr(), py.data_ptr(), order.data_ptr(),
+                    sd.data_ptr(), start.data_ptr(), N, nb, B, TILE,
+                    *(o.data_ptr() for o in out), *(t.data_ptr() for t in a), na,
+                    *(t.data_ptr() for t in b), nbuf,
+                    None if walk is None else walk.data_ptr(), K.stream(dev))
+        K.count("msm_bucket")
     K.check(rc, "msm_bucket")
     return out
 
@@ -370,22 +371,23 @@ def launch_msm_weighted(buckets, lg: int):
     bx = buckets[0]
     B, nb = bx.shape[0], bx.shape[1]
     dev = bx.device
-    for c in buckets:
-        if c.dtype != torch.int32 or tuple(c.shape) != (B, nb, NUM_LIMBS):
-            raise ValueError(f"H4: expected int32 {(B, nb, NUM_LIMBS)}, got "
-                             f"{c.dtype} {tuple(c.shape)}")
-        if c.device != dev or dev.type != "cuda":
-            raise ValueError("H4: buckets must be on one CUDA device")
-        if not c.is_contiguous() or c.data_ptr() % 16:
-            raise ValueError("H4: buckets must be contiguous and 16-byte aligned")
-    ls = _lanes_log2(nb, lg)
-    out = tuple(torch.empty((B, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3))
-    if B == 0:
-        return out
-    lib = K.lib("msm_weighted")
-    rc = lib.msm_weighted_launch(*(c.data_ptr() for c in buckets), nb, lg, ls, B,
-                                 *(o.data_ptr() for o in out), K.stream(dev))
-    K.count("msm_weighted")
+    with K.timed("msm_weighted", "weighted_sums", B, dev) as launch:
+        for c in buckets:
+            if c.dtype != torch.int32 or tuple(c.shape) != (B, nb, NUM_LIMBS):
+                raise ValueError(f"H4: expected int32 {(B, nb, NUM_LIMBS)}, got "
+                                 f"{c.dtype} {tuple(c.shape)}")
+            if c.device != dev or dev.type != "cuda":
+                raise ValueError("H4: buckets must be on one CUDA device")
+            if not c.is_contiguous() or c.data_ptr() % 16:
+                raise ValueError("H4: buckets must be contiguous and 16-byte aligned")
+        ls = _lanes_log2(nb, lg)
+        out = tuple(torch.empty((B, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3))
+        if B == 0:
+            return out
+        lib = K.lib("msm_weighted")
+        rc = launch(lib.msm_weighted_launch, *(c.data_ptr() for c in buckets), nb, lg, ls, B,
+                    *(o.data_ptr() for o in out), K.stream(dev))
+        K.count("msm_weighted")
     K.check(rc, "msm_weighted")
     return out
 
@@ -408,17 +410,6 @@ def bucket_windows(points, digits, c: int):
 # ---------------------------------------------------------------------------
 # drivers
 # ---------------------------------------------------------------------------
-
-def _horner_windows(window_pts, c: int):
-    """Combine window sums (axis 0, most-significant first) by Horner ladder."""
-    x, y, z = window_pts
-    acc = (x[0], y[0], z[0])
-    for w in range(1, x.shape[0]):
-        for _ in range(c):
-            acc = CU.pdbl(acc)
-        acc = CU.padd(acc, (x[w], y[w], z[w]))
-    return acc
-
 
 def msm_ladder(points, scalars):
     """Small-N path: batched double-and-add ladders + tree reduction."""
@@ -450,5 +441,5 @@ def msm(points, scalars, c: int | None = None):
     win = tuple(torch.cat([p[i] for p in parts], dim=0).reshape(W, B, NUM_LIMBS).flip(0)
                 for i in range(3))
     with Timer.stage("msm.horner", scalars.device):
-        acc = _horner_windows(win, c)
+        acc = CU.horner(win, c)
     return tuple(a.reshape(*batch_shape, NUM_LIMBS) for a in acc)

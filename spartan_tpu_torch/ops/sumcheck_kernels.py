@@ -190,9 +190,10 @@ def fold(tables, r):
     lib = K.lib("sc_fold")
     for s in range(0, len(tables), FOLD_MAX):
         grp_in, grp_out = tables[s:s + FOLD_MAX], outs[s:s + FOLD_MAX]
-        rc = lib.sc_fold_launch(_ptrs(grp_in + grp_out), len(grp_in), r.data_ptr(), h,
-                                _nblocks(h, len(grp_in)), K.stream(dev))
-        K.count("sc_fold")
+        with K.timed("sc_fold", "fold", len(grp_in) * n, dev) as launch:
+            rc = launch(lib.sc_fold_launch, _ptrs(grp_in + grp_out), len(grp_in), r.data_ptr(),
+                        h, _nblocks(h, len(grp_in)), K.stream(dev))
+            K.count("sc_fold")
         K.check(rc, "sc_fold")
     return outs
 
@@ -224,15 +225,16 @@ def _launch_prod(step: bool, A, B, C, r, fold_c):
     for s in range(0, I, PROD_MAX):
         g = slice(s, min(s + PROD_MAX, I))
         m = g.stop - g.start
-        nb = _nblocks(q, m)
-        part = torch.empty((m, nb, 3, NUM_LIMBS), dtype=torch.int32, device=dev)
-        ptrs = list(A[g]) + list(B[g]) + list(C[g])
-        if step:
-            ptrs += A2[g] + B2[g] + C2[g]
-        rc = lib.sc_round_prod_launch(int(step), _ptrs(ptrs), m,
-                                      r.data_ptr() if step else None, q, nb,
-                                      part.data_ptr(), K.stream(dev))
-        K.count("sc_round_prod")
+        with K.timed("sc_round_prod", "step" if step else "evals", m * n, dev) as launch:
+            nb = _nblocks(q, m)
+            part = torch.empty((m, nb, 3, NUM_LIMBS), dtype=torch.int32, device=dev)
+            ptrs = list(A[g]) + list(B[g]) + list(C[g])
+            if step:
+                ptrs += A2[g] + B2[g] + C2[g]
+            rc = launch(lib.sc_round_prod_launch, int(step), _ptrs(ptrs), m,
+                        r.data_ptr() if step else None, q, nb, part.data_ptr(),
+                        K.stream(dev))
+            K.count("sc_round_prod")
         K.check(rc, "sc_round_prod")
         evs.append(_sum_partials(part))
     ev = torch.cat(evs, dim=0)
@@ -272,13 +274,13 @@ def _launch_single(name: str, ne: int, step: bool, tables, r):
     if step:
         _check_r(name, r, dev)
         outs = [_empty(n // 2, dev) for _ in tables]
-    nb = _nblocks(q, 1)
-    part = torch.empty((1, nb, ne, NUM_LIMBS), dtype=torch.int32, device=dev)
-    lib = K.lib(name)
-    rc = getattr(lib, f"{name}_launch")(int(step), _ptrs(list(tables) + outs),
-                                        r.data_ptr() if step else None, q, nb,
-                                        part.data_ptr(), K.stream(dev))
-    K.count(name)
+    with K.timed(name, "step" if step else "evals", n, dev) as launch:
+        nb = _nblocks(q, 1)
+        part = torch.empty((1, nb, ne, NUM_LIMBS), dtype=torch.int32, device=dev)
+        lib = K.lib(name)
+        rc = launch(getattr(lib, f"{name}_launch"), int(step), _ptrs(list(tables) + outs),
+                    r.data_ptr() if step else None, q, nb, part.data_ptr(), K.stream(dev))
+        K.count(name)
     K.check(rc, name)
     ev = _sum_partials(part)
     return (*outs, ev) if step else ev

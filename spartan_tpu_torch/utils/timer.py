@@ -66,6 +66,10 @@ class Timer:
         Timer._records = [] if on else None
 
     @staticmethod
+    def collecting() -> bool:
+        return Timer._records is not None
+
+    @staticmethod
     def records() -> list:
         return list(Timer._records or [])
 

@@ -1,0 +1,148 @@
+"""The shared kernel header ``csrc/bn254.cuh`` built as plain C++ against the
+plain PyTorch versions, bit for bit.
+
+The host build runs the header's carry-chain field arithmetic with each
+PTX carry instruction emulated (one thread-local carry flag), so it checks
+the word-by-word algorithm every kernel runs: the Montgomery product, adds
+and subtracts, the complete formulas and H2's two ladders. The PTX itself
+is checked only on the card (``chip_smoke.py``, the ``gpu`` tests). The
+harness below is compiled with ``g++`` into a temporary library.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from spartan_tpu_torch import device as DEV
+from spartan_tpu_torch.ops import curve as CU
+from spartan_tpu_torch.ops import curve_host as CH
+from spartan_tpu_torch.ops import field as F
+from spartan_tpu_torch.ops import fields_host as fh
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "spartan_tpu_torch", "csrc")
+
+HARNESS = r"""
+#include <stdint.h>
+struct uint4 { uint32_t x, y, z, w; };
+#include "bn254.cuh"
+using namespace bn254;
+
+extern "C" void field_op(int op, int fq, const uint32_t* a, const uint32_t* b,
+                         uint32_t* r, long n) {
+  for (long i = 0; i < n; i++) {
+    const uint32_t *x = a + 8 * i, *y = b + 8 * i;
+    uint32_t* o = r + 8 * i;
+    if (op == 0) { if (fq) fe_mul<Fq>(o, x, y); else fe_mul<Fr>(o, x, y); }
+    if (op == 1) { if (fq) fe_add<Fq>(o, x, y); else fe_add<Fr>(o, x, y); }
+    if (op == 2) { if (fq) fe_sub<Fq>(o, x, y); else fe_sub<Fr>(o, x, y); }
+  }
+}
+
+extern "C" void point_op(int op, const uint4* x1, const uint4* y1, const uint4* z1,
+                         const uint4* x2, const uint4* y2, const uint4* z2,
+                         uint4* ox, uint4* oy, uint4* oz, long n) {
+  for (long i = 0; i < n; i++) {
+    const Point P = load_point(x1, y1, z1, i);
+    store_point(ox, oy, oz, i, op == 0 ? padd(P, load_point(x2, y2, z2, i)) : pdbl(P));
+  }
+}
+
+extern "C" void horner(const uint4* x, const uint4* y, const uint4* z, int W, int c,
+                       long B, uint4* ox, uint4* oy, uint4* oz) {
+  for (long i = 0; i < B; i++) store_point(ox, oy, oz, i, horner_ladder(x, y, z, i, B, W, c));
+}
+
+extern "C" void scalar_mul(const uint32_t* k, int nbits, const uint4* x, const uint4* y,
+                           const uint4* z, long n, uint4* ox, uint4* oy, uint4* oz) {
+  for (long i = 0; i < n; i++)
+    store_point(ox, oy, oz, i, scalar_mul_ladder(load_point(x, y, z, i), k + 8 * i, nbits));
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ for the header's host build")
+    d = tmp_path_factory.mktemp("bn254_host")
+    src, so = d / "harness.cpp", d / "harness.so"
+    src.write_text(HARNESS)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{CSRC}", "-o",
+                    str(so), str(src)], check=True, capture_output=True, timeout=120)
+    h = ctypes.CDLL(str(so))
+    for fn in (h.field_op, h.point_op, h.horner, h.scalar_mul):
+        fn.restype = None
+    return h
+
+
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _out_like(coords):
+    return tuple(torch.empty_like(c) for c in coords)
+
+
+def rand_field(spec, n, seed):
+    """n canonical elements, 0, 1 and p - 1 first."""
+    rng = np.random.default_rng(seed)
+    xs = [0, 1, spec.modulus - 1] + [int.from_bytes(rng.bytes(32), "little") % spec.modulus
+                                      for _ in range(n - 3)]
+    return F.encode_canonical(xs, "cpu") if spec is F.FR else F.encode_fq(xs, "cpu")
+
+
+@pytest.mark.parametrize("spec", [F.FR, F.FQ], ids=["Fr", "Fq"])
+def test_field_ops_match_plain(lib, spec):
+    a, b = rand_field(spec, 64, 1), rand_field(spec, 64, 2).flip(0).contiguous()
+    for code, op in enumerate(("mul", "add", "sub")):
+        out = torch.empty_like(a)
+        lib.field_op(code, int(spec is F.FQ), _p(a), _p(b), _p(out), ctypes.c_long(64))
+        assert torch.equal(out, F.field_ew_plain(op, spec, a, b)), op
+
+
+def proj(pts, seed):
+    with DEV.use("cpu"):
+        p = CU.encode_points(pts)
+        rng = np.random.default_rng(seed)
+        z = F.encode_fq([int(v) % (fh.FQ_MOD - 1) + 1
+                         for v in rng.integers(1, 1 << 62, size=len(pts))])
+    return tuple(F.fq.mul(c, z) for c in p)
+
+
+PTS = [CH.scalar_mul(k, CH.GEN) for k in (3, 5, 7, 11, 13, 17)]
+
+
+def test_point_ops_match_plain(lib):
+    A = [None, PTS[0], PTS[1], PTS[2], PTS[3], None]
+    B = [PTS[4], None, PTS[1], CH.neg(PTS[2]), PTS[5], None]
+    P, Q = proj(A, 1), proj(B, 2)
+    for code, want in ((0, CU.padd_plain(P, Q)), (1, CU.pdbl_plain(P))):
+        out = _out_like(P)
+        lib.point_op(code, *map(_p, P + Q + out), ctypes.c_long(len(A)))
+        assert all(torch.equal(o, w) for o, w in zip(out, want))
+
+
+@pytest.mark.parametrize("c,W", [(3, 4), (7, 3)])
+def test_horner_ladder_matches_plain(lib, c, W):
+    cols = [proj([PTS[(w + i) % 6] if (w + i) % 5 else None for i in range(4)], w)
+            for w in range(W)]
+    win = tuple(torch.stack([col[k] for col in cols]).contiguous() for k in range(3))
+    out = _out_like(tuple(a[0] for a in win))
+    lib.horner(*map(_p, win), W, c, ctypes.c_long(4), *map(_p, out))
+    assert all(torch.equal(o, w) for o, w in zip(out, CU.horner_plain(win, c)))
+
+
+def test_scalar_mul_ladder_matches_plain(lib):
+    ks = [0, 1, fh.FR_MOD - 1, 12345678901234567]
+    sc = F.encode_canonical(ks, "cpu")
+    P = proj([PTS[0], None, PTS[1], PTS[1]], 3)
+    out = _out_like(P)
+    lib.scalar_mul(_p(sc), 254, *map(_p, P), ctypes.c_long(4), *map(_p, out))
+    assert all(torch.equal(o, w) for o, w in zip(out, CU.scalar_mul_plain(sc, P, 254)))

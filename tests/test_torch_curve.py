@@ -1,9 +1,11 @@
-"""spartan_tpu_torch G1 ops (kernel H2's plain version on the CPU) against the
+"""spartan_tpu_torch G1 ops (kernel H2's plain versions on the CPU) against the
 host curve and the JAX package's curve_jax, on the same inputs.
 
 Points come from numpy-seeded scalars times the generator; projective
-representations are randomized so the complete formulas see Z != 1. The
-JAX package is imported only inside the test that uses it.
+representations are randomized so the complete formulas see Z != 1. H2's
+two ladders (Horner, double-and-add) are held to the loops of the plain
+formulas they replace bit for bit on (X:Y:Z). The JAX package is imported
+only inside the tests that use it.
 """
 
 import numpy as np
@@ -86,6 +88,94 @@ def test_scalar_mul_vs_host():
     assert got == [CH.scalar_mul(k, p) for k, p in zip(ks, pts)]
 
 
+def windows(W, seed):
+    """[W, 8] window sums: identities, equal points, a point and its
+    negative, each row with its own projective scale."""
+    rows = [PTS[(seed + w) % 12: (seed + w) % 12 + 8] for w in range(W)]
+    rows = [r + PTS[:8 - len(r)] for r in rows]
+    rows[0][1] = rows[1 % W][1] = None          # identities, first window too
+    rows[W - 1][2] = None
+    for w in range(W):
+        rows[w][3] = PTS[4]                      # the same point in every window
+    rows[W - 1][5] = CH.neg(rows[0][5])
+    cols = [proj(r, seed * 10 + w) for w, r in enumerate(rows)]
+    return tuple(torch.stack([c[k] for c in cols]) for k in range(3)), rows
+
+
+def horner_loop(win, c):
+    """The loop of plain formulas that H2's Horner entry replaces."""
+    acc = tuple(a[0] for a in win)
+    for w in range(1, win[0].shape[0]):
+        for _ in range(c):
+            acc = CU.pdbl_plain(acc)
+        acc = CU.padd_plain(acc, tuple(a[w] for a in win))
+    return acc
+
+
+def host_horner(rows, c):
+    out = []
+    for i in range(len(rows[0])):
+        acc = None
+        for r in rows:
+            acc = CH.add(CH.scalar_mul(1 << c, acc) if acc else None, r[i])
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("c,W", [(3, 5), (7, 4)])
+def test_horner_plain(c, W):
+    """The Horner entry on CPU tensors == the loop it replaces (bit for
+    bit) == sum_w 2^(c (W-1-w)) S_w on the host curve."""
+    win, rows = windows(W, c)
+    got = CU.horner(win, c)
+    assert all(torch.equal(a, b) for a, b in zip(got, horner_loop(win, c)))
+    assert CU.decode_points(got) == host_horner(rows, c)
+
+
+def test_horner_matches_curve_jax():
+    """The same projective limbs as the JAX package's padd/pdbl ladder."""
+    import jax.numpy as jnp
+
+    from spartan_tpu.ops import curve_jax as CJ
+
+    c, W = 3, 3
+    win, _ = windows(W, 1)
+    to_j = lambda pt: tuple(jnp.asarray(interop.from_port(a)) for a in pt)
+    acc = to_j(tuple(a[0] for a in win))
+    for w in range(1, W):
+        for _ in range(c):
+            acc = CJ.pdbl(acc)
+        acc = CJ.padd(acc, to_j(tuple(a[w] for a in win)))
+    for mine, theirs in zip(CU.horner(win, c), acc):
+        assert np.array_equal(interop.from_port(mine), np.asarray(theirs))
+
+
+def scalar_mul_loop(sc, p, num_bits):
+    """The loop of plain formulas that H2's double-and-add entry replaces."""
+    words = sc.to(torch.int64) & 0xFFFFFFFF
+    acc = CU.identity(sc.shape[:-1], "cpu")
+    for i in range(num_bits - 1, -1, -1):
+        acc = CU.pdbl_plain(acc)
+        added = CU.padd_plain(acc, p)
+        take = ((words[..., i // 32] >> (i % 32)) & 1) == 1
+        acc = CU.pselect(take, added, acc)
+    return acc
+
+
+def test_scalar_mul_plain_vs_loop():
+    """40-bit scalars (0, 1, 2^40 - 1 among them) on identities and equal
+    points: the double-and-add entry == its loop bit for bit, and k * P on
+    the host curve."""
+    ks = [0, 1, (1 << 40) - 1] + [int(v) for v in RNG.integers(1, 1 << 40, size=5)]
+    pts = [PTS[0], None, PTS[0], PTS[1], PTS[1], None, PTS[2], PTS[3]]
+    sc = F.encode_canonical(ks, "cpu")
+    P = proj(pts, 12)
+    got = CU.scalar_mul(sc, P, num_bits=40)
+    assert all(torch.equal(a, b) for a, b in zip(got, scalar_mul_loop(sc, P, 40)))
+    assert CU.decode_points(got) == [CH.scalar_mul(k, p) if p else None
+                                     for k, p in zip(ks, pts)]
+
+
 def test_batch_normalize():
     pts = PTS[:4] + [None] + PTS[4:6]
     x, y, inf = CU.batch_normalize(proj(pts, 9))
@@ -100,6 +190,25 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,W", [(3, 5), (10, 26)])
+def test_h2_horner_matches_plain(cuda, c, W):
+    win, _ = windows(min(W, 5), c)
+    win = tuple(torch.cat([a] * -(-W // a.shape[0]))[:W].to(cuda) for a in win)
+    got = CU.horner(win, c)
+    for k, p in zip(got, CU.horner_plain(win, c)):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.gpu
+def test_h2_scalar_mul_matches_plain(cuda):
+    ks = [0, 1, fh.FR_MOD - 1] + [int(v) for v in RNG.integers(1, 1 << 62, size=5)]
+    sc = F.encode_canonical(ks, cuda)
+    P = tuple(c.to(cuda) for c in proj([PTS[0], None, PTS[0]] + PTS[1:6], 13))
+    for k, p in zip(CU.scalar_mul(sc, P), CU.scalar_mul_plain(sc, P)):
+        assert torch.equal(k, p)
 
 
 @pytest.mark.gpu

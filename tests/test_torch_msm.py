@@ -217,6 +217,61 @@ def test_msm_stage_accumulators():
         "window_digits", "sort_and_bounds", "h3_bucket_sums", "h4_weighted_sums", "horner")}
 
 
+def test_kernel_timings_while_collecting(monkeypatch):
+    """kernels.timed records a wrapper's launches (CUDA events around each C
+    call, the wrapper's host time) only while Timer collects and only on a
+    card; counts and recorded launches agree, and reset_counts drops both.
+    The card's events are replaced by a fake clock here."""
+    import types
+
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.utils.timer import Timer
+
+    class Event:
+        now = 0.0
+
+        def __init__(self, enable_timing=True):
+            self.at = None
+
+        def record(self):
+            Event.now += 2.0
+            self.at = Event.now
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return end.at - self.at
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    card = types.SimpleNamespace(type="cuda")
+
+    def wrapper(device, n):
+        with K.timed("curve_ew", "padd", n, device) as launch:
+            if n == 0:
+                return 0
+            rc = launch(lambda a, b: a + b, n, 1)
+            K.count("curve_ew")
+        return rc
+
+    K.reset_counts()
+    try:
+        assert wrapper(card, 5) == 6 and K.timings() == []   # not collecting
+        Timer.collect()
+        assert [wrapper(card, 5), wrapper(card, 7), wrapper(card, 0),
+                wrapper(torch.device("cpu"), 5)] == [6, 8, 0, 6]
+        rows = sorted(K.timings(), key=lambda r: r["n"])
+        assert [(r["kernel"], r["entry"], r["n"], r["launches"], r["device_ms"])
+                for r in rows] == [("curve_ew", "padd", 5, 1, 2.0), ("curve_ew", "padd", 7, 1, 2.0)]
+        assert all(r["host_ms"] >= 0 for r in rows)
+        assert K.counts()["curve_ew"] == 4
+        K.reset_counts()
+        assert K.timings() == [] and K.counts()["curve_ew"] == 0
+    finally:
+        Timer.collect(False)
+        K.reset_counts()
+
+
 def test_msm_matches_jax():
     import jax.numpy as jnp
 

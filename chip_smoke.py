@@ -18,9 +18,11 @@ Phases, each printing one JSON line (``"phase": ...``):
             the tile, however long a run); S2 also at a mid-size round;
             every kernel's registers and stack from its build, and the SASS
             of H1's Montgomery product (``cuobjdump``);
-4. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
+4. kzg_msm  one single-row MSM of 2^16 points at c = 16 (H4's 32-lane
+            path at 65,535 buckets) against the host C MSM;
+5. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
             (the SNARK below runs the same R1CSProof at 2^20);
-5. snark    SNARKGens, SNARK.encode / prove / verify of a synthetic
+6. snark    SNARKGens, SNARK.encode / prove / verify of a synthetic
             2^20-constraint instance on the card (the main path), with the
             encode and prove phase times (each MSM's stages inside them,
             as ``<phase>/msm.<stage>`` accumulators), proof bytes, peak
@@ -29,10 +31,22 @@ Phases, each printing one JSON line (``"phase": ...``):
             launch) with its summed device and wrapper host time, H2's
             launches by entry, call site and size, and a corrupted proof
             rejected;
-6. cross    with the host-path thresholds lowered so the device paths run,
-            the NIZK at 2^10 and the SNARK at 2^8 made on the card equal
-            the CPU ones, and the card's runs launched the kernels, the CPU
-            runs none.
+7. snark_kzg the same instance with the derefs committed by KZG
+            (``pcs="kzg"``): the SRS of 2^25 + 2 points generated on the
+            card (``srs_s`` and its phases apart from ``gens_s``), encode,
+            prove (counts zeroed just before, read just after; all eight
+            kernels must launch), verify (two pairings on the host), a
+            corrupted KZG opening rejected; then H3, H4 and the sort timed
+            on one bucket pass of its MSMs (2 digit rows of 2^25 points,
+            c = 16) beside their bounds;
+8. cross    with the host-path thresholds lowered so the device paths run,
+            the NIZK at 2^10 and the SNARK at 2^8 under Hyrax and under
+            KZG made on the card equal the CPU ones, and the card's runs
+            launched the kernels, the CPU runs none;
+9. ingest   tests/fixtures/multiplier2 through ``load_circom`` and
+            ``keyless_bench.run`` on the card and on the CPU under either
+            PCS: equal proofs; the C parser's matrices equal the Python
+            parser's.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or exception exits
@@ -42,7 +56,9 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -82,7 +98,8 @@ HORNER_SHAPES = (("derefs commit MSM", 820, 10), ("witness commit MSM", 1 << 10,
 SCALAR_MUL_N = 1 << 14
 NIZK_LOG2 = 16       # the NIZK alone
 CROSS_LOG2 = 10      # card-vs-CPU NIZK comparison
-CROSS_SNARK_LOG2 = 8  # card-vs-CPU SNARK comparison
+CROSS_SNARK_LOG2 = 8  # card-vs-CPU SNARK comparison, both PCS modes
+KZG_MSM_N = 1 << 16  # one-row MSM at c = 16 against the host C MSM
 
 SOURCES = {
     "field_ew": ("spartan_tpu_torch/csrc/field_ew.cu",
@@ -157,12 +174,26 @@ def main() -> int:
     for name in SOURCES:
         report[name]["ptxas"] = K.ptxas(name)
     emit({"phase": "registers", "ptxas": {n: report[n]["ptxas"] for n in SOURCES}})
+    run_kzg_msm(torch, dev)
     run_nizk(torch, NIZK_LOG2)
-    counts, totals = run_snark(torch, SNARK_LOG2)
+    data = snark_instance(SNARK_LOG2)
+    counts, totals, gens = run_snark(torch, data, SNARK_LOG2, "hyrax")
     for name, n in counts.items():
         report[name]["launches"] = n
         report[name]["prove_device_ms"] = totals[name]["device_ms"]
+    del gens
+    counts, totals, gens = run_snark(torch, data, SNARK_LOG2, "kzg")
+    for name, n in counts.items():
+        report[name]["kzg_prove_launches"] = n
+        report[name]["kzg_prove_device_ms"] = totals[name]["device_ms"]
+    srs = gens.gens_r1cs_eval.gens.gens_derefs.srs
+    del data, gens
+    torch.cuda.empty_cache()
+    kzg_pass(torch, dev, srs, report)
+    del srs
+    torch.cuda.empty_cache()
     run_cross(torch, CROSS_LOG2, CROSS_SNARK_LOG2)
+    run_ingest(torch, here)
 
     emit({"kernels": list(report.values())})
     print(smi, flush=True)
@@ -478,27 +509,29 @@ def check_kernels(torch, dev, report) -> None:
 
 def msm_launch(torch, pts, dig, c: int) -> dict:
     """H3 and H4 on one launch's digit rows [B, N] against their plain
-    versions, bit for bit; their times (mean of 3 wrapper calls; the plain
-    versions once) and bounds, H3's tile and the most mixed adds one of its
-    threads made (its `walk` output, against the plain version's), and each
+    versions, bit for bit; their times
+    (mean of 3 wrapper calls; the sort before H3 too; the plain versions
+    once) and bounds, H3's tile and the most mixed adds one of its threads
+    made (its `walk` output, against the plain version's), and each
     kernel's registers per thread from its build."""
     from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops import msm as M
 
     nb = (1 << c) - 1
     B, N = dig.shape
+    sort_ms = cuda_ms(torch, lambda: M.bucket_inputs(pts, dig), 3)
     args = M.bucket_inputs(pts, dig)
     walk, walk_plain = (torch.empty(B * -(-N // M.TILE), dtype=torch.int32, device=dig.device)
                         for _ in range(2))
     buckets = M.launch_msm_bucket(*args, nb, walk=walk)
     lg = M.seglen_log2(nb)
     sums = M.launch_msm_weighted(buckets, lg)
-    plain, pms3 = cuda_once(torch, lambda: M.bucket_sums_plain(*args, nb, walk=walk_plain))
-    err3 = max(diff(torch, buckets, plain), diff(torch, walk, walk_plain))
-    del plain
-    plain, pms4 = cuda_once(torch, lambda: M.weighted_sums_plain(buckets, lg))
-    err4 = diff(torch, sums, plain)
-    del plain
+    want, pms3 = cuda_once(torch, lambda: M.bucket_sums_plain(*args, nb, walk=walk_plain))
+    err3 = max(diff(torch, buckets, want), diff(torch, walk, walk_plain))
+    del want
+    want, pms4 = cuda_once(torch, lambda: M.weighted_sums_plain(buckets, lg))
+    err4 = diff(torch, sums, want)
+    del want
     if err3 or err4:
         raise AssertionError(f"H3/H4: kernel != plain ({err3}, {err4})")
     ms3 = cuda_ms(torch, lambda: M.launch_msm_bucket(*args, nb), 3)
@@ -514,6 +547,7 @@ def msm_launch(torch, pts, dig, c: int) -> dict:
     # 2 (nb - 1) complete additions per row, one projective point out
     b4, b4by = bound(B * nb * 96 + B * 96, B * 2 * (nb - 1) * PADD_M * MONT)
     return {"msm_bucket": {"ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": b3by,
+                           "sort_ms": sort_ms,
                            "shape": f"{B} digit rows x {N} points, c={c}", "tile": M.TILE,
                            "max_thread_mixed_adds": most, **runs,
                            "ptxas": K.ptxas("msm_bucket")},
@@ -735,34 +769,58 @@ def run_nizk(torch, log2: int) -> dict:
           "prove_phases": phases, "prove_acc": acc})
 
 
-def run_snark(torch, log2: int) -> tuple:
-    """The main path: encode, prove, verify a 2^log2 SNARK on the card.
-    Returns every kernel's launch count in the prove and its totals
-    ({"launches", "device_ms", "host_ms"}: the wrapper calls' CUDA-event
-    and host times, recorded while Timer collects)."""
+def snark_instance(log2: int) -> tuple:
+    """(instance, vars, inputs, nnz, seconds to build them) of the SNARK
+    phases: the synthetic 2^log2 instance, built once for both paths."""
     from spartan_tpu_torch.io.keyless_bench import synthetic
+
+    t = time.perf_counter()
+    inst, vars_, inputs, nnz = synthetic(log2)
+    return inst, vars_, inputs, nnz, time.perf_counter() - t
+
+
+def run_snark(torch, data, log2: int, pcs: str) -> tuple:
+    """A path through the SNARK on the card: SNARKGens, encode, prove,
+    verify of the 2^log2 instance ``data`` with the derefs committed by
+    ``pcs``: 'hyrax' (the main path) or 'kzg' (its SRS generated on the
+    card at the configured path, timed apart as srs_s with its phases).
+    The launch counts are zeroed just before the prove and read just after.
+    Returns every kernel's launch count in the prove, its totals
+    ({"launches", "device_ms", "host_ms"}: the wrapper calls' CUDA-event
+    and host times, recorded while Timer collects) and the gens."""
+    from spartan_tpu_torch.config import SpartanConfig
     from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops.fields_host import FR_MOD
     from spartan_tpu_torch.snark import SNARK, SNARKGens
+    from spartan_tpu_torch.utils.cachedir import subdir
     from spartan_tpu_torch.utils.errors import SpartanError
     from spartan_tpu_torch.utils.random_tape import RandomTape
     from spartan_tpu_torch.utils.serialization import deserialize, serialize
     from spartan_tpu_torch.utils.timer import Timer
     from spartan_tpu_torch.utils.transcript import Transcript
 
-    t = time.perf_counter()
-    inst, vars_, inputs, nnz = synthetic(log2)
-    setup_s = time.perf_counter() - t
+    inst, vars_, inputs, nnz, setup_s = data
     n = inst.inst.num_cons
-    t = time.perf_counter()
-    gens = SNARKGens(n, n, 1, nnz)
-    gens_s = time.perf_counter() - t
+    config = SpartanConfig(pcs=pcs, srs_path=os.path.join(subdir("cache", "srs"),
+                                                          "smoke_snark.npz"))
+    if pcs == "kzg" and os.path.exists(config.srs_path):
+        os.remove(config.srs_path)   # generate it, as on a fresh machine
 
     def phases():
         return [{"depth": d, "label": lbl, "s": s} for d, lbl, s in Timer.records()]
 
     def accumulators():
         return [{"label": lbl, "v": v} for lbl, v in Timer.acc_records()]
+
+    torch.cuda.reset_peak_memory_stats()
+    Timer.collect()
+    t = time.perf_counter()
+    gens = SNARKGens(n, n, 1, nnz, config=config)
+    torch.cuda.synchronize()
+    gens_s = time.perf_counter() - t
+    srs_phases = [ph for ph in phases() if ph["label"].startswith("srs.")]
+    srs_s = sum(ph["s"] for ph in srs_phases)
+    gens_peak = torch.cuda.max_memory_allocated()
 
     torch.cuda.reset_peak_memory_stats()
     Timer.collect()
@@ -801,16 +859,25 @@ def run_snark(torch, log2: int) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched by the SNARK prove: {missing}")
+        raise AssertionError(f"kernels not launched by the {pcs} SNARK prove: {missing}")
 
     raw = serialize(proof)
     t = time.perf_counter()
+    Timer.collect()
     proof.verify(comm, inputs, Transcript(b"chip_smoke"), gens)
     verify_s = time.perf_counter() - t
+    verify_phases = phases()
+    Timer.collect(False)
 
-    bad = deserialize(SNARK, raw)
-    a, b, c = bad.inst_evals
-    bad.inst_evals = ((a + 1) % FR_MOD, b, c)
+    bad = deserialize(SNARK, raw, pcs=pcs)
+    if pcs == "kzg":
+        # the KZG opening's claimed evaluation (the pairing check fails)
+        opening = bad.r1cs_eval_proof.proof.poly_eval_network_proof.proof_hash_layer \
+            .proof_derefs.proof_derefs
+        opening.eval = (opening.eval + 1) % FR_MOD
+    else:
+        a, b, c = bad.inst_evals
+        bad.inst_evals = ((a + 1) % FR_MOD, b, c)
     try:
         bad.verify(comm, inputs, Transcript(b"chip_smoke"), gens)
     except (SpartanError, AssertionError):
@@ -818,21 +885,140 @@ def run_snark(torch, log2: int) -> tuple:
     else:
         rejected = False
     if not rejected:
-        raise AssertionError("a corrupted SNARK proof was accepted")
-    emit({"phase": "snark", "log2": log2, "num_cons": n, "num_nz_entries": nnz,
-          "setup_s": setup_s, "gens_s": gens_s, "encode_s": encode_s, "prove_s": prove_s,
+        raise AssertionError(f"a corrupted {pcs} SNARK proof was accepted")
+    line = {"phase": "snark" if pcs == "hyrax" else "snark_kzg", "pcs": pcs, "log2": log2,
+            "num_cons": n, "num_nz_entries": nnz, "setup_s": setup_s}
+    if pcs == "kzg":
+        srs = gens.gens_r1cs_eval.gens.gens_derefs.srs
+        line.update(srs_s=srs_s, srs_points=srs.size, srs_phases=srs_phases,
+                    srs_path=config.srs_path)
+    emit({**line, "gens_s": gens_s - srs_s, "encode_s": encode_s, "prove_s": prove_s,
           "verify_s": verify_s, "proof_bytes": len(raw),
           "proof_sha256": hashlib.sha256(raw).hexdigest(),
+          "gens_peak_device_bytes": gens_peak,
           "encode_peak_device_bytes": encode_peak, "prove_peak_device_bytes": peak,
           "launches": counts, "kernel_totals": totals, "h2_launches": h2,
           "corrupted_rejected": True,
           "encode_phases": encode_phases, "encode_acc": encode_acc,
-          "prove_phases": prove_phases, "prove_acc": acc})
-    return counts, totals
+          "prove_phases": prove_phases, "prove_acc": acc, "verify_phases": verify_phases})
+    return counts, totals, gens
+
+
+def kzg_pass(torch, dev, srs, report) -> None:
+    """H3, H4 and the sort on one bucket pass of the KZG prove's MSMs at
+    2^20 (the derefs table of 6 x 2^22 entries padded to 2^25: 2 digit rows
+    of 2^25 SRS points, c = 16), the table's values in its proportions (a
+    quarter zero padding; in each matrix's quarter, its 2^20 padding
+    entries one repeated value), held bit for bit against their plain
+    versions and timed beside their bounds."""
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import msm as M
+
+    N = 1 << (SNARK_LOG2 + 5)
+    per, nnz = 1 << (SNARK_LOG2 + 2), 3 << SNARK_LOG2
+    c = M.choose_window(N)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    sc = rand_canon(torch, F.FR, N, gen)
+    for k in range(6):
+        sc[k * per + nnz:(k + 1) * per] = sc[k * per]
+    sc[6 * per:] = 0
+    dig = M.window_digits(sc, c)
+    del sc
+    B = M.CHUNK_BUDGET // N
+    rows = dig[:, :B].t().contiguous()
+    del dig
+    pts = tuple(a[:N] for a in srs.powers_g1)
+    one = msm_launch(torch, pts, rows, c)
+    for name in ("msm_bucket", "msm_weighted"):
+        report[name]["detail"]["kzg_pass"] = one[name]
+        emit({"phase": "kernels", "kernel": name, "kzg_pass": one[name]})
+
+
+def run_kzg_msm(torch, dev) -> None:
+    """One single-row MSM of KZG_MSM_N points at c = 16 (W = 16 digit rows
+    of 65,535 buckets: H4's 32-lane path) on points from the fixed-base
+    table, against the host C MSM."""
+    from spartan_tpu_torch.core import commitments as CM
+    from spartan_tpu_torch.ops import curve as CU
+    from spartan_tpu_torch.ops import curve_host as CH
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import msm as M
+    from spartan_tpu_torch.ops.limbs import limbs_to_ints, to_numpy
+
+    n, c = KZG_MSM_N, 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    pts = CM.points_from_scalars(rand_canon(torch, F.FR, n, gen)[3:], dev)
+    sc = rand_canon(torch, F.FR, n - 3, gen)
+    host_pts = CM._decode_affine(pts)
+    got, ms = cuda_once(torch, lambda: M.msm(pts, sc, c=c))
+    t = time.perf_counter()
+    want = CH.msm(limbs_to_ints(to_numpy(sc)), host_pts)
+    host_s = time.perf_counter() - t
+    same = CU.decode_points(tuple(a.unsqueeze(0) for a in got))[0] == want
+    emit({"phase": "kzg_msm", "points": n - 3, "c": c, "digit_rows": -(-254 // c),
+          "buckets_per_row": (1 << c) - 1, "equal_to_host_c_msm": same, "msm_ms": ms,
+          "host_c_msm_s": host_s})
+    if not same:
+        raise AssertionError("kzg_msm: the card's MSM disagrees with the host C MSM")
+
+
+def run_ingest(torch, here: str) -> None:
+    """tests/fixtures/multiplier2 through load_circom and keyless_bench.run
+    on the card and on the CPU, both PCS modes: the proofs are equal, and
+    the C parser's matrices equal the Python parser's."""
+    from spartan_tpu_torch import native
+    from spartan_tpu_torch.config import SpartanConfig
+    from spartan_tpu_torch.io import keyless_bench as KB
+    from spartan_tpu_torch.io import r1cs_reader as RR
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.utils.cachedir import subdir
+
+    r1cs = os.path.join(here, "tests", "fixtures", "multiplier2.r1cs")
+    wtns = os.path.join(here, "tests", "fixtures", "multiplier2.wtns")
+    with open(r1cs, "rb") as f:
+        data = f.read()
+    r = RR.R1CSFile.from_bytes(data)
+    off = 12 + 12 + int.from_bytes(data[16:24], "little") + 12   # the constraints section
+    parsed = native.r1cs_parse_native(data, off, r.num_constraints, 32)
+    if parsed is None:
+        raise AssertionError("ingest: the C parser is not available or refused the file")
+    c_mats = tuple([(int(a), int(b), int.from_bytes(raw[32 * i:32 * i + 32].tobytes(), "little"))
+                    for i, (a, b) in enumerate(zip(rows, cols))]
+                   for rows, cols, raw in parsed)
+    if not c_mats == RR._parse_constraints_py(data, off, r.num_constraints, 32) == (r.a, r.b, r.c):
+        raise AssertionError("ingest: the C parser's matrices differ from the Python parser's")
+    for pcs in ("hyrax", "kzg"):
+        config = SpartanConfig(pcs=pcs, srs_path=os.path.join(subdir("cache", "srs"),
+                                                              "smoke_ingest.npz"))
+        if os.path.exists(config.srs_path):
+            os.remove(config.srs_path)
+        out = {}
+        for device in ("cuda", "cpu"):
+            K.reset_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rep = KB.run(*KB.load_circom(r1cs, wtns), config=config, device=device,
+                             tape_seed=bytes([3]) * 32)
+            out[device] = (rep, time.perf_counter() - t, K.counts())
+        same = out["cuda"][0]["proof_sha256"] == out["cpu"][0]["proof_sha256"]
+        emit({"phase": "ingest", "pcs": pcs, "circuit": "tests/fixtures/multiplier2",
+              "c_parser_equals_python": True, "identical": same,
+              "proof_bytes": out["cuda"][0]["proof_bytes"],
+              "sha256": out["cuda"][0]["proof_sha256"], "cuda_s": out["cuda"][1],
+              "cpu_s": out["cpu"][1], "cuda_report": out["cuda"][0],
+              "cuda_launches": out["cuda"][2], "cpu_launches": out["cpu"][2]})
+        if not same:
+            raise AssertionError(f"ingest ({pcs}): the card's proof differs from the CPU's")
+        if max(out["cpu"][2].values()) > 0:
+            raise AssertionError(f"ingest ({pcs}): the CPU run launched kernels")
 
 
 def run_cross(torch, log2: int, snark_log2: int) -> None:
-    """Device-path proofs on the card == the same proofs on the CPU."""
+    """Device-path proofs on the card == the same proofs on the CPU: the
+    NIZK, and the SNARK with either derefs commitment."""
+    from spartan_tpu_torch.config import SpartanConfig
     from spartan_tpu_torch.core import hostpath as HP
     from spartan_tpu_torch.io.keyless_bench import synthetic
     from spartan_tpu_torch.ops import field as F
@@ -841,6 +1027,7 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
     from spartan_tpu_torch.snark import NIZK, SNARK, NIZKGens, SNARKGens
     from spartan_tpu_torch.utils.random_tape import RandomTape
     from spartan_tpu_torch.utils.serialization import serialize
+    from spartan_tpu_torch.utils.cachedir import subdir
     from spartan_tpu_torch.utils.transcript import Transcript
 
     def nizk(device):
@@ -852,10 +1039,13 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
         proof.verify(inst, inputs, Transcript(b"cross"), gens)
         return proof
 
-    def snark(device):
+    def snark(device, pcs="hyrax"):
         inst, vars_, inputs, nnz = synthetic(snark_log2, seed=1)
         n = inst.inst.num_cons
-        gens = SNARKGens(n, n, 1, nnz, device=device)
+        # KZG: the card's run generates the SRS there and saves it, the
+        # CPU's run loads that file
+        gens = SNARKGens(n, n, 1, nnz, device=device, config=SpartanConfig(
+            pcs=pcs, srs_path=srs_path))
         comm, decomm = SNARK.encode(inst, gens)
         proof = SNARK.prove(inst, comm, decomm, vars_, inputs, gens, Transcript(b"cross"),
                             RandomTape(b"cross", seed=bytes([9]) * 32))
@@ -864,9 +1054,15 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
 
     # every device path at these sizes; the SNARK keeps the small MSMs of
     # its bullet reductions on the host C backend (their plain versions
-    # on the CPU would take minutes), its row commits go to the device
-    lowered = {"nizk": (2, 4, 0, 4, 0), "snark": (2, HP.HOST_MSM_N, 0, M.LADDER_N, 0)}
-    for what, fn in (("nizk", nizk), ("snark", snark)):
+    # on the CPU would take minutes), its row commits and KZG MSMs go to
+    # the device
+    snark_lowered = (2, HP.HOST_MSM_N, 0, M.LADDER_N, 0)
+    lowered = {"nizk": (2, 4, 0, 4, 0), "snark": snark_lowered, "snark_kzg": snark_lowered}
+    srs_path = os.path.join(subdir("cache", "srs"), "smoke_cross.npz")
+    if os.path.exists(srs_path):
+        os.remove(srs_path)
+    for what, fn in (("nizk", nizk), ("snark", snark),
+                     ("snark_kzg", lambda device: snark(device, "kzg"))):
         saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N,
                  F._HOST_CONVERT_N)
         HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = \

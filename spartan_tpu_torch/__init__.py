@@ -1,4 +1,4 @@
-"""spartan_tpu_torch: the Spartan zkSNARK (BN254, Hyrax) on PyTorch + CUDA.
+"""spartan_tpu_torch: the Spartan zkSNARK (BN254, Hyrax or KZG) on PyTorch + CUDA.
 
 The port of ``spartan_tpu`` to an NVIDIA H100. It mirrors the JAX
 package's module layout and produces byte-identical proofs; its field,
@@ -7,8 +7,10 @@ built with ``nvcc`` for ``sm_90a`` on first use. Entry points run on the CUDA ca
 unless given ``device="cpu"``, where every kernel wrapper runs its plain
 PyTorch version. Nothing here imports JAX or ``spartan_tpu``.
 
-Public API (lazy, so importing the package stays cheap):
-    Assignment, Instance, NIZKGens, NIZK, SNARKGens, SNARK, Transcript, RandomTape
+Public API (lazy, so importing the package stays cheap): Assignment,
+Instance, NIZKGens, NIZK, SNARKGens, SNARK, Transcript, RandomTape,
+SpartanConfig, the KZG classes of ``pcs/kzg.py`` and the circom readers
+(R1CSFile, parse_wtns).
 """
 
 from __future__ import annotations
@@ -22,6 +24,13 @@ _EXPORTS = {
     "SNARK": ("spartan_tpu_torch.snark", "SNARK"),
     "Transcript": ("spartan_tpu_torch.utils.transcript", "Transcript"),
     "RandomTape": ("spartan_tpu_torch.utils.random_tape", "RandomTape"),
+    "SpartanConfig": ("spartan_tpu_torch.config", "SpartanConfig"),
+    "R1CSFile": ("spartan_tpu_torch.io.r1cs_reader", "R1CSFile"),
+    "parse_wtns": ("spartan_tpu_torch.io.r1cs_reader", "parse_wtns"),
+    **{name: ("spartan_tpu_torch.pcs.kzg", name) for name in (
+        "KZGSrs", "KZGCommitment", "KZGProof", "KZGBatchProof", "KZGPolyCommitmentGens",
+        "KZGPolyCommitment", "KZGPolyEvalProof", "KZGBatchedCommitment",
+        "KZGBatchedEvalProof")},
 }
 
 __all__ = list(_EXPORTS)

@@ -1,0 +1,37 @@
+"""Run-time configuration of the port: the reference's Cargo features as data.
+
+Counterpart of ``spartan_tpu/config.py``, reading the same environment
+variables when a ``SpartanConfig`` is made: the polynomial commitment of
+the derefs (``SPARTAN_TPU_PCS``), where the KZG SRS is kept
+(``SPARTAN_TPU_SRS``, by default under the port's ``build/cache/srs``) and
+the seed it is generated from when it is missing (``SPARTAN_TPU_SRS_SEED``).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+
+def _default_srs_path() -> str:
+    from spartan_tpu_torch.utils.cachedir import build_path
+
+    return build_path("cache", "srs", "spartan_tpu_srs.npz")
+
+
+@dataclass
+class SpartanConfig:
+    # polynomial commitment scheme of the derefs: 'hyrax' | 'kzg'
+    pcs: str = field(default_factory=lambda: os.environ.get("SPARTAN_TPU_PCS", "hyrax"))
+    # KZG SRS file and the seed of the deterministic test SRS (kzg.rs:58-63)
+    srs_path: str = field(default_factory=lambda: os.environ.get("SPARTAN_TPU_SRS")
+                          or _default_srs_path())
+    srs_seed: int = field(default_factory=lambda: int(
+        os.environ.get("SPARTAN_TPU_SRS_SEED", str(0xDEADBEEF))))
+
+    def __post_init__(self):
+        if self.pcs not in ("hyrax", "kzg"):
+            raise ValueError(f"unknown PCS mode: {self.pcs}")
+
+
+DEFAULT = SpartanConfig()

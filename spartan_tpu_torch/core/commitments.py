@@ -81,28 +81,41 @@ def _fixed_base_windows(device):
     return _fixed_base_tables[key]
 
 
-def points_from_scalars(scalars: list[int], device=None):
+# scalars per fixed-base gather pass: bounds the digit, index and gathered
+# point transients (~3.5 KB a scalar, ~1 GB a pass); module-level so tests
+# can shrink it
+FIXED_BASE_CHUNK = 1 << 18
+
+
+def points_from_scalars(scalars, device=None):
     """s_i * G for each scalar, as affine (x, y, inf) tensors.
 
-    Small batches run on the host C backend; large ones gather from the
-    fixed-base window table (32 windows of 8 bits over 256-bit scalars)
-    and add the 32 gathered points with H2.
+    ``scalars``: Python ints, or canonical limbs [n, 8] already on the
+    device. Small batches of ints run on the host C backend; large ones
+    gather from the fixed-base window table (32 windows of 8 bits over
+    256-bit scalars) and add the 32 gathered points with H2, one chunk of
+    scalars at a time.
     """
     dev = DEV.current() if device is None else torch.device(device)
-    if len(scalars) <= HOST_FIXED_BASE_N:
+    if isinstance(scalars, torch.Tensor):
+        sc = scalars.to(dev)
+    elif len(scalars) <= HOST_FIXED_BASE_N:
         pts = [CH.scalar_mul(s % FR_MOD, CH.GEN) for s in scalars]
         return CU.encode_points_affine(pts, dev)
+    else:
+        sc = F.encode_canonical([s % FR_MOD for s in scalars], dev)
     tx, ty, tinf = _fixed_base_windows(dev)
-    sc = F.encode_canonical([s % FR_MOD for s in scalars], dev)
-    digits = MSM.window_digits(sc, _FIXED_BASE_C, num_bits=256)          # [n, 32]
-    idx = (digits.long() + (torch.arange(32, device=dev) << _FIXED_BASE_C)).long()
-    CHUNK = 1 << 15
+    offsets = torch.arange(32, device=dev) << _FIXED_BASE_C
     parts = []
-    for start in range(0, idx.shape[0], CHUNK):
-        ix = idx[start:start + CHUNK]
+    for start in range(0, sc.shape[0], FIXED_BASE_CHUNK):
+        digits = MSM.window_digits(sc[start:start + FIXED_BASE_CHUNK], _FIXED_BASE_C,
+                                   num_bits=256)                       # [chunk, 32]
+        ix = digits.long() + offsets
+        del digits
         proj = CU.from_affine(tx[ix], ty[ix], tinf[ix])
         parts.append(MSM.reduce_points(proj, axis=1))
     proj = tuple(torch.cat([p[i] for p in parts], dim=0) for i in range(3))
+    del parts
     return CU.batch_normalize(proj)
 
 

@@ -123,17 +123,19 @@ class R1CSShape:
 
 
 class R1CSCommitmentGens:
-    """Generators of the SNARK-mode matrix commitment (r1cs.rs:263-343)."""
+    """Generators of the SNARK-mode matrix commitment (r1cs.rs:263-343);
+    ``pcs`` ('hyrax' or 'kzg') and ``kzg_srs`` pick the derefs commitment."""
 
     def __init__(self, label: bytes, num_cons: int, num_vars: int,
-                 num_nz_entries: int, pcs: str = "hyrax"):
+                 num_nz_entries: int, pcs: str = "hyrax", kzg_srs=None):
         from spartan_tpu_torch.core.sparse_mlpoly_full import SparseMatPolyCommitmentGens
 
         nx = log_2(num_cons)
         ny = log_2(2 * num_vars)
         # nnz floored at 2 as in SparseMatPolynomial.get_num_nz_entries
         self.gens = SparseMatPolyCommitmentGens(
-            label, nx, ny, max(2, next_power_of_two(num_nz_entries)), 3, pcs=pcs)
+            label, nx, ny, max(2, next_power_of_two(num_nz_entries)), 3, pcs=pcs,
+            kzg_srs=kzg_srs)
 
 
 def _sparse_commitment_spec(_ctx):

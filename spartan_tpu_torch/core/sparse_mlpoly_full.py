@@ -1,4 +1,4 @@
-"""The sparse-matrix evaluation proof (lookup argument), SNARK mode, Hyrax.
+"""The sparse-matrix evaluation proof (lookup argument), SNARK mode.
 
 Counterpart of ``spartan_tpu/core/sparse_mlpoly_full.py`` (reference
 sparse_mlpoly_full.rs). Proves that committed sparse matrices A, B, C
@@ -8,7 +8,8 @@ evaluate to claimed values at (rx, ry) by offline memory checking:
   runs of a stable sort (numpy, at preprocessing), the reference's
   sequential loop (sparse_mlpoly_full.rs:211-243) with the same values;
 - ``Derefs``: mem[addr] gathered on the device, committed with Hyrax (the
-  H3/H4 MSM);
+  H3/H4 MSM) or, with ``pcs="kzg"``, with KZG (one MSM of the whole
+  table, opened at a transcript point: ``pcs/kzg.py``);
 - the hash layer h(a, v, t) = t r^2 + v r + a - gamma on H1;
 - the grand products of the multisets as batched product-tree proofs,
   whose layered sumchecks run on S1/S2;
@@ -16,9 +17,8 @@ evaluate to claimed values at (rx, ry) by offline memory checking:
 
 Index and timestamp tables are encoded on the device from int64 arrays
 (``DensePolynomial.from_usize``) whenever they are needed, never through
-Python ints, and are not kept between phases. Only Hyrax is ported: the
-KZG derefs mode is ROADMAP item 13. Transcript labels and orders match the
-reference byte for byte.
+Python ints, and are not kept between phases. Transcript labels and orders
+match the reference byte for byte in both modes.
 """
 
 from __future__ import annotations
@@ -50,8 +50,6 @@ from spartan_tpu_torch.utils.math import log_2, next_power_of_two, pow2
 from spartan_tpu_torch.utils.timer import Timer
 
 fr = F.fr
-
-KZG_TODO = "the KZG derefs commitment is not ported yet (ROADMAP item 13)"
 
 
 def k_hash_layer(addr, val, ts, r_hash, r_hash_sqr, gamma):
@@ -182,12 +180,18 @@ def multi_sparse_to_dense_rep(sparse_polys, device=None) -> MultiSparseMatPolyno
 
 
 class SparseMatPolyCommitmentGens:
-    """Hyrax gens for the ops/mem/derefs polys (sparse_mlpoly_full.rs:602-631)."""
+    """Gens of the ops/mem/derefs polys (sparse_mlpoly_full.rs:602-631).
+
+    ``pcs``: 'hyrax' (default) or 'kzg', the derefs commitment (the
+    reference's compile-time feature flag); KZG without ``kzg_srs`` makes
+    the seeded test SRS of the JAX package.
+    """
 
     def __init__(self, label: bytes, num_vars_x: int, num_vars_y: int,
-                 num_nz_entries: int, batch_size: int, pcs: str = "hyrax"):
-        if pcs != "hyrax":
-            raise NotImplementedError(KZG_TODO)
+                 num_nz_entries: int, batch_size: int, pcs: str = "hyrax",
+                 kzg_srs=None):
+        if pcs not in ("hyrax", "kzg"):
+            raise ValueError(f"unknown PCS mode: {pcs}")
         num_vars_ops = log_2(next_power_of_two(num_nz_entries)) + \
             log_2(next_power_of_two(batch_size * 5))
         num_vars_mem = max(num_vars_x, num_vars_y) + 1
@@ -197,7 +201,14 @@ class SparseMatPolyCommitmentGens:
         self.pcs = pcs
         self.gens_ops = PolyCommitmentGens(num_vars_ops, label)
         self.gens_mem = PolyCommitmentGens(num_vars_mem, label)
-        self.gens_derefs = PolyCommitmentGens(num_vars_derefs, label)
+        if pcs == "hyrax":
+            self.gens_derefs = PolyCommitmentGens(num_vars_derefs, label)
+        else:
+            from spartan_tpu_torch.pcs.kzg import KZGPolyCommitmentGens, KZGSrs
+
+            if kzg_srs is None:
+                kzg_srs = KZGSrs.setup_from_seed(pow2(num_vars_derefs) + 1, 0xDEADBEEF)
+            self.gens_derefs = KZGPolyCommitmentGens(kzg_srs)
 
 
 @dataclass
@@ -255,24 +266,30 @@ class Derefs:
     def comb(self) -> DensePolynomial:
         return DensePolynomial.merge(self.row_ops_val + self.col_ops_val)
 
-    def commit(self, gens: PolyCommitmentGens) -> "DerefsCommitment":
-        comm, _ = commit_poly(self.comb(), gens)
-        return DerefsCommitment(comm)
+    def commit(self, gens) -> "DerefsCommitment":
+        """Hyrax row commits, or one KZG commitment of the whole table."""
+        if isinstance(gens, PolyCommitmentGens):
+            comm, _ = commit_poly(self.comb(), gens)
+            return DerefsCommitment(comm)
+        return DerefsCommitment(gens.commit(self.comb()))
 
 
-def _derefs_spec(spec):
+def _derefs_spec(hyrax, kzg: str):
+    """Serialization pick of a derefs field by the ``pcs`` context."""
     def pick(ctx):
-        if ctx.get("pcs", "hyrax") != "hyrax":
-            raise NotImplementedError(KZG_TODO)
-        return spec
+        if ctx.get("pcs", "hyrax") == "hyrax":
+            return hyrax
+        from spartan_tpu_torch.pcs import kzg as KZG
+
+        return getattr(KZG, kzg)
     return pick
 
 
 @dataclass
 class DerefsCommitment:
-    comm_ops_val: PolyCommitment
+    comm_ops_val: object  # PolyCommitment (Hyrax) or KZGPolyCommitment
 
-    SCHEMA = {"comm_ops_val": _derefs_spec(PolyCommitment)}
+    SCHEMA = {"comm_ops_val": _derefs_spec(PolyCommitment, "KZGPolyCommitment")}
 
     def append_to_transcript(self, label: bytes, transcript) -> None:
         transcript.append_message(b"derefs_commitment", b"begin_derefs_commitment")
@@ -293,17 +310,22 @@ def _n_to_one_reduction(evals: list[int], transcript, label_challenge: bytes):
 
 @dataclass
 class DerefsEvalProof:
-    """Joint opening of all deref MLEs at rand_ops (sparse_mlpoly_full.rs:362-482)."""
+    """Joint opening of all deref MLEs at rand_ops (Hyrax:
+    sparse_mlpoly_full.rs:362-482; KZG: :498-596)."""
 
-    proof_derefs: PolyEvalProof
+    proof_derefs: object  # PolyEvalProof (Hyrax) or KZGPolyEvalProof
 
-    SCHEMA = {"proof_derefs": _derefs_spec(PolyEvalProof)}
+    SCHEMA = {"proof_derefs": _derefs_spec(PolyEvalProof, "KZGPolyEvalProof")}
 
     PROTOCOL = b"Derefs evaluation proof"
+    PROTOCOL_KZG = b"Derefs evaluation proof (KZG)"
 
     @staticmethod
-    def _joint_claim(evals: list[int], r: list[int], transcript):
-        transcript.append_protocol_name(DerefsEvalProof.PROTOCOL)
+    def _joint_claim(evals: list[int], r: list[int], gens, transcript):
+        """Hyrax and KZG bind distinct protocol names (:371 vs :500)."""
+        transcript.append_protocol_name(
+            DerefsEvalProof.PROTOCOL if isinstance(gens, PolyCommitmentGens)
+            else DerefsEvalProof.PROTOCOL_KZG)
         evals = list(evals) + [0] * (next_power_of_two(len(evals)) - len(evals))
         transcript.append_scalars(b"evals_ops_val", evals)
         challenges, joint_claim_eval = _n_to_one_reduction(
@@ -313,20 +335,26 @@ class DerefsEvalProof:
 
     @staticmethod
     def prove(derefs: Derefs, eval_row_ops_val: list[int], eval_col_ops_val: list[int],
-              r: list[int], gens: PolyCommitmentGens, transcript,
-              random_tape) -> "DerefsEvalProof":
+              r: list[int], gens, transcript, random_tape) -> "DerefsEvalProof":
         r_joint, joint_claim_eval = DerefsEvalProof._joint_claim(
-            list(eval_row_ops_val) + list(eval_col_ops_val), r, transcript)
-        proof, _ = PolyEvalProof.prove(derefs.comb(), None, r_joint, joint_claim_eval, None,
-                                       gens, transcript, random_tape)
+            list(eval_row_ops_val) + list(eval_col_ops_val), r, gens, transcript)
+        if isinstance(gens, PolyCommitmentGens):
+            proof, _ = PolyEvalProof.prove(derefs.comb(), None, r_joint, joint_claim_eval,
+                                           None, gens, transcript, random_tape)
+        else:
+            proof = gens.prove_eval(derefs.comb(), r_joint, joint_claim_eval, transcript)
         return DerefsEvalProof(proof)
 
     def verify(self, r: list[int], eval_row_ops_val: list[int], eval_col_ops_val: list[int],
-               gens: PolyCommitmentGens, comm: DerefsCommitment, transcript) -> None:
+               gens, comm: DerefsCommitment, transcript) -> None:
         r_joint, joint_claim_eval = DerefsEvalProof._joint_claim(
-            list(eval_row_ops_val) + list(eval_col_ops_val), r, transcript)
-        self.proof_derefs.verify_plain(gens, transcript, r_joint, joint_claim_eval,
-                                       comm.comm_ops_val)
+            list(eval_row_ops_val) + list(eval_col_ops_val), r, gens, transcript)
+        if isinstance(gens, PolyCommitmentGens):
+            self.proof_derefs.verify_plain(gens, transcript, r_joint, joint_claim_eval,
+                                           comm.comm_ops_val)
+        else:
+            gens.verify_eval(self.proof_derefs, comm.comm_ops_val, r_joint,
+                             joint_claim_eval, transcript)
 
 
 # ---------------------------------------------------------------------------

@@ -19,21 +19,7 @@ import torch
 from spartan_tpu_torch.core.commitments import MultiCommitGens
 from spartan_tpu_torch.core.mle import DensePolynomial
 from spartan_tpu_torch.core.r1cs import R1CSShape
-
-
-def limbs16_to_32(a16) -> np.ndarray:
-    """uint32 [..., 16] of 16-bit limbs -> int32 [..., 8] (32-bit limbs)."""
-    a = np.asarray(a16).astype(np.uint64) & 0xFFFF
-    w = a[..., 0::2] | (a[..., 1::2] << np.uint64(16))
-    return w.astype(np.uint32).view(np.int32)
-
-
-def limbs32_to_16(a32) -> np.ndarray:
-    """int32/uint32 [..., 8] of 32-bit limbs -> uint32 [..., 16]."""
-    w = np.asarray(a32)
-    w = (w.view(np.uint32) if w.dtype == np.int32 else w.astype(np.uint32)).astype(np.uint64)
-    out = np.stack((w & 0xFFFF, w >> np.uint64(16)), axis=-1)
-    return out.reshape(*w.shape[:-1], 2 * w.shape[-1]).astype(np.uint32)
+from spartan_tpu_torch.ops.limbs import limbs16_to_32, limbs32_to_16
 
 
 def to_port(a16, device="cpu") -> torch.Tensor:
@@ -99,20 +85,21 @@ def dense_rep(num_cells: int, row_addr, col_addr, vals16, device="cpu"):
         [dense_poly(v, device) for v in vals16])
 
 
-def r1cs_commitment(raw: bytes):
+def r1cs_commitment(raw: bytes, pcs: str = "hyrax"):
     """A serialized ``R1CSCommitment`` (either package's bytes) -> the port's."""
     from spartan_tpu_torch.core.r1cs import R1CSCommitment
     from spartan_tpu_torch.utils.serialization import deserialize
 
-    return deserialize(R1CSCommitment, raw)
+    return deserialize(R1CSCommitment, raw, pcs=pcs)
 
 
-def snark_proof(raw: bytes):
-    """A serialized ``SNARK`` proof (either package's bytes) -> the port's."""
+def snark_proof(raw: bytes, pcs: str = "hyrax"):
+    """A serialized ``SNARK`` proof (either package's bytes, made with the
+    derefs commitment ``pcs``) -> the port's."""
     from spartan_tpu_torch.snark import SNARK
     from spartan_tpu_torch.utils.serialization import deserialize
 
-    return deserialize(SNARK, raw)
+    return deserialize(SNARK, raw, pcs=pcs)
 
 
 __all__ = ["limbs16_to_32", "limbs32_to_16", "to_port", "from_port", "affine_to_port",

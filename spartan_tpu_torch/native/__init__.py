@@ -1,10 +1,11 @@
 """Native host kernels: build-on-first-import C library with ctypes bindings.
 
-Provides ``keccak_f1600(state: bytearray)`` and the host G1/Fr backend of
-``g1_host.c`` (the MSM oracle and the verifier's MSMs). The .r1cs parser
-in ``spartan_native.c`` is built but not bound until ingestion is ported. Falls back to pure Python automatically if no
-compiler is present (``available`` is False then); callers never need to
-branch — they import the dispatching wrappers from the usual modules.
+Provides ``keccak_f1600(state: bytearray)``, the circom ``.r1cs``
+constraints parser of ``spartan_native.c`` (``r1cs_parse_native``) and the
+host G1/Fr backend of ``g1_host.c`` (the MSM oracle and the verifier's
+MSMs). Falls back to pure Python automatically if no compiler is present
+(``available`` is False then); callers never need to branch — they import
+the dispatching wrappers from the usual modules.
 
 The library is built with ``-march=native``, so the cached ``.so`` is keyed
 on the CPU that built it as well as on the sources and flags: a checkout
@@ -91,6 +92,14 @@ def _load():
         return
     lib.keccak_f1600.argtypes = [ctypes.c_char_p]
     lib.keccak_f1600.restype = None
+    lib.r1cs_count.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.POINTER(ctypes.c_int64)]
+    lib.r1cs_count.restype = ctypes.c_int64
+    lib.r1cs_parse.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_void_p] * 9
+    lib.r1cs_parse.restype = ctypes.c_int64
     _lib = lib
     available = True
 
@@ -131,3 +140,35 @@ def keccak_f1600_bytes_native(state: bytearray) -> None:
     """In-place Keccak-f[1600] on a 200-byte state (C fast path)."""
     buf = (ctypes.c_char * 200).from_buffer(state)
     _lib.keccak_f1600(buf)
+
+
+def r1cs_parse_native(data: bytes, off: int, num_constraints: int, field_size: int):
+    """The .r1cs constraints section -> 3 x (rows, cols, vals_raw) numpy
+    arrays (int64, int64, uint8 of field_size bytes per entry).
+
+    Returns None if the native library is unavailable or the buffer is
+    malformed (callers fall back to the Python parser).
+    """
+    import numpy as np
+
+    if not available:
+        return None
+    counts = (ctypes.c_int64 * 3)()
+    total = _lib.r1cs_count(data, len(data), off, num_constraints, field_size, counts)
+    if total < 0:
+        return None
+    out = []
+    ptrs = []
+    for m in range(3):
+        n = counts[m]
+        rows = np.empty(n, dtype=np.int64)
+        cols = np.empty(n, dtype=np.int64)
+        vals = np.empty(n * field_size, dtype=np.uint8)
+        out.append((rows, cols, vals))
+        ptrs += [rows.ctypes.data_as(ctypes.c_void_p),
+                 cols.ctypes.data_as(ctypes.c_void_p),
+                 vals.ctypes.data_as(ctypes.c_void_p)]
+    got = _lib.r1cs_parse(data, len(data), off, num_constraints, field_size, *ptrs)
+    if got != total:
+        return None
+    return out

@@ -6,9 +6,10 @@ R = 2^256, stored as ``int32`` bit patterns ``[..., 8]`` (see
 hand-written CUDA kernel, ``csrc/field_ew.cu`` (H1), which replaces the
 JAX package's Pallas ``make_field_kernels`` mul/add/sub
 (``spartan_tpu/ops/pallas_field.py:469-497``). Everything else here
-(``sqr``, ``neg``, ``inv``, ``batch_inverse``, ``to_mont``/``from_mont``)
-is composed from those three, as ``spartan_tpu/ops/field_jax.py`` composes
-its own; ``reduce_sum`` is plain torch and exact mod p.
+(``sqr``, ``neg``, ``inv``, ``batch_inverse``, ``to_mont``/``from_mont``,
+the log-step scans ``scan_mul``/``scan_add``) is composed from those
+three, as ``spartan_tpu/ops/field_jax.py`` composes its own;
+``reduce_sum`` is plain torch and exact mod p.
 
 Plain versions
 --------------
@@ -375,16 +376,24 @@ def make_ops(spec: FieldSpec):
                 acc = mul(acc, a)
         return torch.where(is_zero(a).unsqueeze(-1), torch.zeros_like(a), acc)
 
-    def _scan_mul(x, reverse: bool = False):
-        """Inclusive prefix products along axis 0 (log-step, exact)."""
+    def _scan(op, x, reverse: bool):
+        """Inclusive scan of ``op`` along axis 0 (log-step, exact)."""
         if reverse:
-            return _scan_mul(x.flip(0)).flip(0)
+            return _scan(op, x.flip(0), False).flip(0)
         n = x.shape[0]
         stride = 1
         while stride < n:
-            x = torch.cat((x[:stride], mul(x[:n - stride], x[stride:])), dim=0)
+            x = torch.cat((x[:stride], op(x[:n - stride], x[stride:])), dim=0)
             stride *= 2
         return x
+
+    def _scan_mul(x, reverse: bool = False):
+        """Inclusive prefix products along axis 0 (suffix products if reverse)."""
+        return _scan(mul, x, reverse)
+
+    def _scan_add(x, reverse: bool = False):
+        """Inclusive prefix sums along axis 0 (suffix sums if reverse), on H1 add."""
+        return _scan(add, x, reverse)
 
     def batch_inverse(a):
         """Inverse along axis 0 via Montgomery's trick (zeros -> zeros)."""
@@ -417,6 +426,7 @@ def make_ops(spec: FieldSpec):
     ops.zeros, ops.one = zeros, ones_mont
     ops.to_mont, ops.from_mont = to_mont, from_mont
     ops.inv, ops.batch_inverse, ops.reduce_sum = inv, batch_inverse, reduce_sum
+    ops.scan_mul, ops.scan_add = _scan_mul, _scan_add
     return ops
 
 

@@ -7,7 +7,8 @@ layout; ``np.ndarray.view`` moves between the two without copying.
 
 The JAX package keeps 16 limbs of 16 bits (``spartan_tpu/ops/limbs.py``);
 with the same Montgomery factor R = 2^256 both hold the same integer, so
-a value converts by regrouping limb pairs (see ``spartan_tpu_torch.interop``).
+a value converts by regrouping limb pairs (``limbs16_to_32`` and
+``limbs32_to_16``: the KZG SRS file and ``spartan_tpu_torch.interop``).
 """
 
 from __future__ import annotations
@@ -51,3 +52,18 @@ def to_tensor(limbs_u32: np.ndarray, device) -> torch.Tensor:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 torch limbs -> uint32 numpy array (host copy)."""
     return t.detach().to("cpu").contiguous().numpy().view(np.uint32)
+
+
+def limbs16_to_32(a16) -> np.ndarray:
+    """uint32 [..., 16] of 16-bit limbs -> int32 [..., 8] (32-bit limbs)."""
+    a = np.asarray(a16).astype(np.uint32, copy=False)
+    w = (a[..., 0::2] & np.uint32(0xFFFF)) | (a[..., 1::2] << np.uint32(16))
+    return w.view(np.int32)
+
+
+def limbs32_to_16(a32) -> np.ndarray:
+    """int32/uint32 [..., 8] of 32-bit limbs -> uint32 [..., 16]."""
+    w = np.asarray(a32)
+    w = w.view(np.uint32) if w.dtype == np.int32 else w.astype(np.uint32)
+    out = np.stack((w & np.uint32(0xFFFF), w >> np.uint32(16)), axis=-1)
+    return out.reshape(*w.shape[:-1], 2 * w.shape[-1])

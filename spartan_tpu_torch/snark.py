@@ -4,10 +4,11 @@ Counterpart of ``spartan_tpu/snark.py`` (reference src/snark.rs). The
 NIZK carries (rx, ry) so its verifier can evaluate A, B, C itself
 (snark.rs:183-287); the SNARK instead carries claimed evaluations plus the
 sparse-matrix evaluation proof against the preprocessed commitment
-(snark.rs:393-529), with Hyrax commitments only. The entry points run on
-the CUDA card unless the caller passes ``device="cpu"``: ``NIZKGens`` and
-``SNARKGens`` place their generators on the device, and every prove,
-encode and verify runs on the generators' device.
+(snark.rs:393-529), whose derefs are committed with Hyrax or KZG. The
+entry points run on the CUDA card unless the caller passes
+``device="cpu"``: ``NIZKGens`` and ``SNARKGens`` place their generators
+(and the KZG SRS) on the device, and every prove, encode and verify runs
+on the generators' device.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from spartan_tpu_torch.utils.errors import (
     InvalidScalarError,
     ProofVerifyError,
 )
-from spartan_tpu_torch.utils.math import next_power_of_two
+from spartan_tpu_torch.utils.math import log_2, next_power_of_two, pow2
 from spartan_tpu_torch.utils.random_tape import RandomTape
 from spartan_tpu_torch.utils.transcript import Transcript
 
@@ -158,21 +159,40 @@ class NIZK:
 
 class SNARKGens:
     """Generators of SNARK mode (snark.rs:289-391), on ``device`` (the
-    CUDA card by default). Only Hyrax is ported: ``pcs="kzg"`` raises."""
+    CUDA card by default).
+
+    ``pcs`` picks the derefs commitment ('hyrax' or 'kzg'; default: the
+    config's). In KZG mode without ``kzg_srs``, the SRS is loaded from
+    ``config.srs_path``, or generated from ``config.srs_seed`` and saved
+    there (kzg.rs:104-121).
+    """
 
     def __init__(self, num_cons: int, num_vars: int, num_inputs: int,
-                 num_nz_entries: int, pcs: str = "hyrax", device=None):
-        if pcs != "hyrax":
-            from spartan_tpu_torch.core.sparse_mlpoly_full import KZG_TODO
-
-            raise NotImplementedError(KZG_TODO)
+                 num_nz_entries: int, pcs: str | None = None, kzg_srs=None,
+                 config=None, device=None):
+        if config is None:
+            from spartan_tpu_torch.config import DEFAULT as config
+        if pcs is None:
+            pcs = config.pcs
         self.device = DEV.resolve(device)
         num_vars_padded = next_power_of_two(max(num_vars, num_inputs + 1))
         num_cons_padded = next_power_of_two(max(num_cons, 2))
         with DEV.use(self.device):
+            if pcs == "kzg" and kzg_srs is None:
+                from spartan_tpu_torch.pcs.kzg import KZGSrs
+
+                # the derefs batch of 3 rows -> next pow2 4, x2 for the
+                # row/col split: the largest committed vector is
+                # 8 * next_pow2(max_nnz), with max_nnz floored at 2 as in
+                # R1CSCommitmentGens (the JAX package omits the floor, and
+                # its SRS is too short for a one-entry circuit)
+                nv = log_2(max(2, next_power_of_two(num_nz_entries))) + 3
+                kzg_srs = KZGSrs.load_or_generate(config.srs_path, pow2(nv) + 1,
+                                                  config.srs_seed)
             self.gens_r1cs_sat = R1CSGens(b"gens_r1cs_sat", num_cons_padded, num_vars_padded)
             self.gens_r1cs_eval = R1CSCommitmentGens(
-                b"gens_r1cs_eval", num_cons_padded, num_vars_padded, num_nz_entries)
+                b"gens_r1cs_eval", num_cons_padded, num_vars_padded, num_nz_entries,
+                pcs=pcs, kzg_srs=kzg_srs)
 
 
 @dataclass

@@ -3,7 +3,8 @@
 Everything the port builds or caches at run time lands under one
 directory, ``build/`` beside the package (listed in ``.gitignore``):
 ``build/kernels`` for the CUDA libraries, ``build/cache/native`` for the
-host C library and ``build/cache/gens`` for Pedersen generator tables.
+host C library, ``build/cache/gens`` for Pedersen generator tables and
+``build/cache/srs`` for the KZG SRS.
 """
 
 from __future__ import annotations
@@ -11,9 +12,14 @@ from __future__ import annotations
 import os
 
 
-def build_root() -> str:
+def build_path(*names: str) -> str:
+    """A path under ``build/``, nothing created."""
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    root = os.path.join(os.path.dirname(pkg), "build")
+    return os.path.join(os.path.dirname(pkg), "build", *names)
+
+
+def build_root() -> str:
+    root = build_path()
     os.makedirs(root, exist_ok=True)
     return root
 

@@ -1,15 +1,18 @@
 """The port's SNARK (the slice end to end) against the JAX package.
 
 At the size of ``tests/test_snark_e2e.py``'s instance (8 constraints, 8
-variables, one input), with the same label and seeded RandomTape:
+variables, one input), with the same label and seeded RandomTape, for each
+derefs commitment (``pcs`` hyrax and kzg, the KZG SRS of the default seed
+loaded or generated at a path of the test's own):
 (a) the commitment and the serialized proof are byte-identical to
     spartan_tpu's, with the port's sumchecks on their device-path code
     (the kernels' plain versions on the CPU; host tail lowered to 2);
 (b) each package's verifier accepts the other's proof, from bytes;
-(c) corrupted proofs are rejected as tests/test_snark_e2e.py:76 expects.
+(c) corrupted proofs are rejected as tests/test_snark_e2e.py:76 expects;
+(d) the proof and commitment survive a serialization round trip in their
+    mode, and do not parse in the other.
 Also the pieces the SNARK adds: the dense representation and its
-timestamps, the product-tree proofs, the MLE helpers, and KZG mode
-refusing to run.
+timestamps, the product-tree proofs and the MLE helpers.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ from spartan_tpu_torch import interop
 from spartan_tpu_torch.core import hostpath as HP
 from spartan_tpu_torch.core import mle
 from spartan_tpu_torch.core.mle import DensePolynomial, IdentityPolynomial
+from spartan_tpu_torch.config import SpartanConfig
 from spartan_tpu_torch.core.product_tree import (
     DotProductCircuit,
     ProductCircuit,
@@ -27,6 +31,7 @@ from spartan_tpu_torch.core.product_tree import (
     ProductCircuitEvalProofBatched,
 )
 from spartan_tpu_torch.ops import field as F
+from spartan_tpu_torch.core.r1cs import R1CSCommitment
 from spartan_tpu_torch.snark import SNARK, Assignment, Instance, SNARKGens
 from spartan_tpu_torch.utils.errors import SpartanError
 from spartan_tpu_torch.utils.random_tape import RandomTape
@@ -42,10 +47,12 @@ def _assignment(a):
     return Assignment(list(a.assignment))
 
 
-@pytest.fixture(scope="module")
-def snarks():
-    """One 8-constraint instance proved by both packages."""
+@pytest.fixture(scope="module", params=["hyrax", "kzg"])
+def snarks(request, tmp_path_factory):
+    """One 8-constraint instance proved by both packages with the derefs
+    committed by ``request.param``."""
     from spartan_tpu import snark as JS
+    from spartan_tpu.config import SpartanConfig as JSpartanConfig
     from spartan_tpu.io.keyless_bench import synthetic as jax_synthetic
     from spartan_tpu.utils.random_tape import RandomTape as JRandomTape
     from spartan_tpu.utils.transcript import Transcript as JTranscript
@@ -56,20 +63,25 @@ def snarks():
                                *[(m.rows, m.cols, m.vals) for m in (js.A, js.B, js.C)])
     inst = Instance.from_shape(shape)
     n = js.num_cons
+    pcs = request.param
+    srs_dir = tmp_path_factory.mktemp("srs")
     saved = HP.HOST_N
     HP.HOST_N = 2
     try:
-        gens = SNARKGens(n, n, 1, nnz, device="cpu")
+        gens = SNARKGens(n, n, 1, nnz, device="cpu", config=SpartanConfig(
+            pcs=pcs, srs_path=str(srs_dir / "port.npz")))
         comm, decomm = SNARK.encode(inst, gens)
         proof = SNARK.prove(inst, comm, decomm, _assignment(jvars), _assignment(jinputs),
                             gens, Transcript(LABEL), RandomTape(b"snark_proof", seed=TAPE_SEED))
     finally:
         HP.HOST_N = saved
-    jgens = JS.SNARKGens(n, n, 1, nnz)
+    jgens = JS.SNARKGens(n, n, 1, nnz, config=JSpartanConfig(
+        pcs=pcs, srs_path=str(srs_dir / "jax.npz")))
     jcomm, jdecomm = JS.SNARK.encode(jinst, jgens)
     jproof = JS.SNARK.prove(jinst, jcomm, jdecomm, jvars, jinputs, jgens, JTranscript(LABEL),
                             JRandomTape(b"snark_proof", seed=TAPE_SEED))
-    return {"inst": inst, "inputs": _assignment(jinputs), "gens": gens, "comm": comm,
+    return {"pcs": pcs, "inst": inst, "inputs": _assignment(jinputs), "gens": gens,
+            "comm": comm,
             "decomm": decomm, "proof": proof, "jinst": jinst, "jinputs": jinputs,
             "jgens": jgens, "jcomm": jcomm, "jdecomm": jdecomm, "jproof": jproof}
 
@@ -92,23 +104,23 @@ def test_jax_verifier_accepts_port_proof(snarks):
     from spartan_tpu.utils.serialization import deserialize as jax_deserialize
     from spartan_tpu.utils.transcript import Transcript as JTranscript
 
-    jp = jax_deserialize(JS.SNARK, serialize(snarks["proof"]))
-    jc = jax_deserialize(JComm, serialize(snarks["comm"]))
+    jp = jax_deserialize(JS.SNARK, serialize(snarks["proof"]), pcs=snarks["pcs"])
+    jc = jax_deserialize(JComm, serialize(snarks["comm"]), pcs=snarks["pcs"])
     jp.verify(jc, snarks["jinputs"], JTranscript(LABEL), snarks["jgens"])
 
 
 def test_port_verifier_accepts_jax_proof(snarks):
     from spartan_tpu.utils.serialization import serialize as jax_serialize
 
-    p = interop.snark_proof(jax_serialize(snarks["jproof"]))
-    c = interop.r1cs_commitment(jax_serialize(snarks["jcomm"]))
+    p = interop.snark_proof(jax_serialize(snarks["jproof"]), pcs=snarks["pcs"])
+    c = interop.r1cs_commitment(jax_serialize(snarks["jcomm"]), pcs=snarks["pcs"])
     p.verify(c, snarks["inputs"], Transcript(LABEL), snarks["gens"])
 
 
 @pytest.mark.parametrize("where", ["inst_evals", "prod_layer_init", "hash_layer_eval_val",
-                                   "inputs"])
+                                   "inputs", "derefs_opening"])
 def test_corrupted_proof_rejected(snarks, where):
-    p = deserialize(SNARK, serialize(snarks["proof"]))
+    p = deserialize(SNARK, serialize(snarks["proof"]), pcs=snarks["pcs"])
     inputs = snarks["inputs"]
     net = p.r1cs_eval_proof.proof.poly_eval_network_proof
     if where == "inst_evals":
@@ -120,6 +132,13 @@ def test_corrupted_proof_rejected(snarks, where):
     elif where == "hash_layer_eval_val":
         hl = net.proof_hash_layer
         hl.eval_val = [(hl.eval_val[0] + 1) % P] + hl.eval_val[1:]
+    elif where == "derefs_opening":
+        # the KZG opening's evaluation, or the Hyrax opening's z1
+        opening = net.proof_hash_layer.proof_derefs.proof_derefs
+        if snarks["pcs"] == "kzg":
+            opening.eval = (opening.eval + 1) % P
+        else:
+            opening.proof.z1 = (opening.proof.z1 + 1) % P
     else:
         inputs = Assignment([(inputs.assignment[0] + 1) % P])
     with pytest.raises((SpartanError, AssertionError)):
@@ -146,11 +165,16 @@ def test_dense_rep_matches_jax(snarks):
     assert carried.comb_mem().to_ints() == d.comb_mem().to_ints()
 
 
-def test_kzg_mode_is_not_ported(snarks):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        SNARKGens(8, 8, 1, 24, pcs="kzg", device="cpu")
-    with pytest.raises(NotImplementedError):
-        deserialize(SNARK, serialize(snarks["proof"]), pcs="kzg")
+def test_serialization_roundtrip(snarks):
+    """Proof and commitment bytes parse back to the same bytes in their
+    mode; the derefs fields make them unreadable in the other mode."""
+    pcs = snarks["pcs"]
+    other = "hyrax" if pcs == "kzg" else "kzg"
+    for cls, obj in ((SNARK, snarks["proof"]), (R1CSCommitment, snarks["comm"])):
+        raw = serialize(obj)
+        assert serialize(deserialize(cls, raw, pcs=pcs)) == raw
+    with pytest.raises((ValueError, TypeError)):
+        deserialize(SNARK, serialize(snarks["proof"]), pcs=other)
 
 
 def test_snark_gens_want_cuda_unless_told_cpu():

@@ -6,7 +6,7 @@
 Phases, each printing one JSON line (``"phase": ...``):
 
 1. device   the card's name and power limit (``nvidia-smi``);
-2. build    the eight CUDA kernels built from ``spartan_tpu_torch/csrc``
+2. build    the ten CUDA kernels built from ``spartan_tpu_torch/csrc``
             with nvcc for sm_90a, one nvcc per source, in parallel;
 3. kernels  each kernel against its plain PyTorch version on the card at
             the shapes the 2^20 SNARK gives it, bit for bit (tolerance 0:
@@ -17,7 +17,13 @@ Phases, each printing one JSON line (``"phase": ...``):
             H3's tile, the most mixed adds one of its threads makes (at most
             the tile, however long a run); S2 also at a mid-size round;
             every kernel's registers and stack from its build, and the SASS
-            of H1's Montgomery product (``cuobjdump``);
+            of H1's Montgomery product (``cuobjdump``); T1 (the device
+            transcript's round step) over a chain of 200 rounds and T2 (the
+            fused sumcheck's tail) at ``SMALL_BUCKET_N`` entries, both at the
+            ops trees' leaf layout, bit for bit against their plain versions
+            (every r and the final sponge), and the fused driver on one
+            leaf-layout sumcheck of 2^14 entries timed for each T2 entry
+            size (``tail_threshold``);
 4. kzg_msm  one single-row MSM of 2^16 points at c = 16 (H4's 32-lane
             path at 65,535 buckets) against the host C MSM;
 5. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
@@ -27,22 +33,27 @@ Phases, each printing one JSON line (``"phase": ...``):
             encode and prove phase times (each MSM's stages inside them,
             as ``<phase>/msm.<stage>`` accumulators), proof bytes, peak
             device memory,
-            every kernel's launch count in the prove (all eight must
+            every kernel's launch count in the prove (all ten must
             launch) with its summed device and wrapper host time, H2's
             launches by entry, call site and size, and a corrupted proof
-            rejected;
+            rejected; then the same prove on the per-round path
+            (``sumcheck_fused.FUSED = False``: no T1 or T2 launch) and on
+            the fused path again, whose proofs must equal the first, with
+            the three proves' times and ``product_layer_proof``;
 7. snark_kzg the same instance with the derefs committed by KZG
             (``pcs="kzg"``): the SRS of 2^25 + 2 points generated on the
             card (``srs_s`` and its phases apart from ``gens_s``), encode,
-            prove (counts zeroed just before, read just after; all eight
+            prove (counts zeroed just before, read just after; all ten
             kernels must launch), verify (two pairings on the host), a
-            corrupted KZG opening rejected; then H3, H4 and the sort timed
+            corrupted KZG opening rejected, the per-round and second fused
+            proves as in ``snark``; then H3, H4 and the sort timed
             on one bucket pass of its MSMs (2 digit rows of 2^25 points,
             c = 16) beside their bounds;
-8. cross    with the host-path thresholds lowered so the device paths run,
-            the NIZK at 2^10 and the SNARK at 2^8 under Hyrax and under
-            KZG made on the card equal the CPU ones, and the card's runs
-            launched the kernels, the CPU runs none;
+8. cross    with the host-path thresholds (and the fused tail's entry size)
+            lowered so the device paths run, the NIZK at 2^10 and the SNARK
+            at 2^8 under Hyrax and under KZG made on the card, on the fused
+            and on the per-round path, equal the CPU ones, and the card's
+            runs launched the kernels, the CPU runs none;
 9. ingest   tests/fixtures/multiplier2 through ``load_circom`` and
             ``keyless_bench.run`` on the card and on the CPU under either
             PCS: equal proofs; the C parser's matrices equal the Python
@@ -100,6 +111,11 @@ NIZK_LOG2 = 16       # the NIZK alone
 CROSS_LOG2 = 10      # card-vs-CPU NIZK comparison
 CROSS_SNARK_LOG2 = 8  # card-vs-CPU SNARK comparison, both PCS modes
 KZG_MSM_N = 1 << 16  # one-row MSM at c = 16 against the host C MSM
+T1_ROUNDS = 200      # T1 held to its plain version over this chain of rounds
+# the fused driver on one leaf-layout sumcheck of TAIL_N entries, timed for
+# each entry size of T2
+TAIL_N = 1 << 14
+TAIL_THRESHOLDS = (1 << 10, 1 << 11, 1 << 12, 1 << 13)
 
 SOURCES = {
     "field_ew": ("spartan_tpu_torch/csrc/field_ew.cu",
@@ -122,6 +138,14 @@ SOURCES = {
     "sc_round_quad": ("spartan_tpu_torch/csrc/sc_round_quad.cu",
                       "spartan_tpu/ops/pallas_sumcheck.py:589 (_k_lm_evals_quad; _k_step_quad "
                       ":189, _k_evals_quad :244)"),
+    # no Pallas counterpart: the JAX functions they stand for
+    "sc_transcript": ("spartan_tpu_torch/csrc/sc_transcript.cu",
+                      "spartan_tpu/core/sumcheck_fused.py:140 (_make_round_body's "
+                      "transcript step, on DynTranscript, spartan_tpu/ops/"
+                      "transcript_device.py:370; not a Pallas kernel)"),
+    "sc_tail": ("spartan_tpu_torch/csrc/sc_tail.cu",
+                "spartan_tpu/core/sumcheck_fused.py:199 (_k_fused_cubic_batched, its "
+                "while-loop over the small-table tail; not a Pallas kernel)"),
 }
 # kernels the NIZK's prove runs (the product-layer kernel S2 is SNARK only)
 NIZK_KERNELS = ("field_ew", "curve_ew", "msm_bucket", "msm_weighted", "sc_fold",
@@ -171,6 +195,7 @@ def main() -> int:
               for name, (src, rep) in SOURCES.items()}
     check_kernels(torch, dev, report)
     check_sumcheck_kernels(torch, dev, report)
+    check_transcript_kernels(torch, dev, report)
     for name in SOURCES:
         report[name]["ptxas"] = K.ptxas(name)
     emit({"phase": "registers", "ptxas": {n: report[n]["ptxas"] for n in SOURCES}})
@@ -664,6 +689,148 @@ def check_sumcheck_kernels(torch, dev, report) -> None:
         del T, got
 
 
+def check_transcript_kernels(torch, dev, report) -> None:
+    """T1 over a chain of T1_ROUNDS rounds on one sponge and T2 at
+    SMALL_BUCKET_N entries, both at the ops trees' leaf layout (12
+    instances on a shared C + 6 with their own), against their plain
+    versions bit for bit: every coefficient and r, the claim, the final
+    200-byte state and positions, T2's final values. Each kernel timed as
+    raw C launches; then the T2 entry size timing (``tail_threshold_ms``)."""
+    from spartan_tpu_torch.core import sumcheck_fused as SF
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.ops import sumcheck_kernels as SK
+    from spartan_tpu_torch.ops import transcript_device as TD
+    from spartan_tpu_torch.utils.transcript import Transcript
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    stream = K.stream(dev)
+    nP, nS = SC_PAR, SC_SEQ
+    I = nP + nS
+    coeffs = rand_canon(torch, F.FR, I, gen)
+    claim0 = rand_canon(torch, F.FR, 4, gen)[3].clone()
+    tr = Transcript(b"chip_smoke t1")
+    tr.append_message(b"offset", bytes(range(77)))
+
+    # -- T1: a chain of rounds, fresh evaluations each round
+    R = T1_ROUNDS
+    evals = rand_canon(torch, F.FR, R * 3 * I, gen).reshape(R, 3 * I, 8)
+    runs = []
+    for fn in (TD.round_transcript, TD.round_transcript_plain):
+        sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
+        polys = torch.zeros((R, 4, 8), dtype=torch.int32, device=dev)
+        rs = torch.zeros((R, 8), dtype=torch.int32, device=dev)
+
+        def chain():
+            for j in range(R):
+                fn(evals[j], coeffs, claim, sponge, polys[j], rs[j])
+
+        _, ms = cuda_once(torch, chain)
+        runs.append((rs, polys, claim, sponge, ms))
+    names = ("r", "coefficients", "claim", "sponge")
+    for name, a, b in zip(names, runs[0], runs[1]):
+        if diff(torch, a, b):
+            raise AssertionError(f"sc_transcript: kernel != plain ({name}, {R} rounds)")
+    st, pos, pos_begin = TD.unpack_sponge(runs[0][3])
+    lib = K.lib("sc_transcript")
+    sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
+    polys = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    r = torch.zeros(8, dtype=torch.int32, device=dev)
+    timed = launch_ms(torch, "sc_transcript", lambda: lib.sc_transcript_launch(
+        evals[0].data_ptr(), coeffs.data_ptr(), I, claim.data_ptr(), sponge.data_ptr(),
+        polys.data_ptr(), r.data_ptr(), stream))
+    # bytes: evals, coefficients, claim and sponge in; coefficients, r,
+    # claim and sponge out. Operations: the Montgomery products (the sums
+    # sum_i coeff_i e_t,i, the cubic, the serialization, the challenge's
+    # reduction, Horner); the sponge's Keccak work has no multiplies
+    bms, by = bound(32 * (4 * I + 1) + 208 + 32 * 6 + 208, MONT * (3 * I + 11))
+    report["sc_transcript"].update(
+        max_abs_err=0, match=True, ms=timed["ms"], ms_spread=[timed["min_ms"], timed["max_ms"]],
+        plain_ms=runs[1][4] / R, bound_ms=bms, bound_by=by,
+        shape=f"one round of {nP} shared-C + {nS} own-C instances; chain of {R} rounds "
+              f"held to the plain version",
+        chain_ms_per_round=runs[0][4] / R, final_sponge={"pos": pos, "pos_begin": pos_begin,
+                                                         "sha256": hashlib.sha256(st).hexdigest()},
+        note="one thread, latency-bound: the bound counts multiplies only")
+    emit({"phase": "kernels", "kernel": "sc_transcript", **report["sc_transcript"]})
+
+    # -- T2: the whole tail at SMALL_BUCKET_N entries
+    n = SF.SMALL_BUCKET_N
+    rounds = n.bit_length() - 1
+    A = [rand_canon(torch, F.FR, n, gen) for _ in range(I)]
+    B = [rand_canon(torch, F.FR, n, gen) for _ in range(I)]
+    Cp = rand_canon(torch, F.FR, n, gen)
+    Cs = [rand_canon(torch, F.FR, n, gen) for _ in range(nS)]
+    runs = []
+    for fn in (SK.prod_tail, SK.prod_tail_plain):
+        sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
+        polys = torch.zeros((rounds, 4, 8), dtype=torch.int32, device=dev)
+        rs = torch.zeros((rounds, 8), dtype=torch.int32, device=dev)
+        finals, ms = cuda_once(torch, lambda: fn(A, B, Cp, Cs, coeffs, claim, sponge, polys, rs))
+        runs.append((finals, rs, polys, claim, sponge, ms))
+    for name, a, b in zip(("final values",) + names, runs[0], runs[1]):
+        if diff(torch, a, b):
+            raise AssertionError(f"sc_tail: kernel != plain ({name}, {n} entries)")
+    M = 2 * I + 1 + nS
+    T = torch.stack(A + B + [Cp] + Cs)
+    sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
+    polys = torch.zeros((rounds, 4, 8), dtype=torch.int32, device=dev)
+    rs = torch.zeros((rounds, 8), dtype=torch.int32, device=dev)
+    finals = torch.zeros((M, 8), dtype=torch.int32, device=dev)
+    lib = K.lib("sc_tail")
+    timed = launch_ms(torch, "sc_tail", lambda: lib.sc_tail_launch(
+        T.data_ptr(), M, n, I, nP, coeffs.data_ptr(), claim.data_ptr(), sponge.data_ptr(),
+        polys.data_ptr(), rs.data_ptr(), finals.data_ptr(), rounds, SK.TAIL_THREADS, stream),
+        launches=20, repeats=5)
+    # the function's work: each table read once, the outputs written once;
+    # per round of half size h, 6 products per instance and position (the
+    # terms at t = 0, 2, 3), one per table and position (the fold), and
+    # the round step's 3I + 11
+    muls = sum(6 * I * (n >> (j + 1)) + M * (n >> (j + 1)) + 3 * I + 11 for j in range(rounds))
+    bms, by = bound(32 * (M * n + I + 1) + 208 + 32 * (5 * rounds + M + 1) + 208, MONT * muls)
+    report["sc_tail"].update(
+        max_abs_err=0, match=True, ms=timed["ms"], ms_spread=[timed["min_ms"], timed["max_ms"]],
+        plain_ms=runs[1][5], bound_ms=bms, bound_by=by,
+        shape=f"{rounds} rounds from {n} entries, {nP} shared-C + {nS} own-C instances "
+              f"({M} tables), one block of {SK.TAIL_THREADS} threads",
+        montgomery_products=muls, tail_threshold=tail_threshold_ms(torch, dev, gen),
+        note="one block on one SM, each round waiting on the last one's challenge")
+    emit({"phase": "kernels", "kernel": "sc_tail", **report["sc_tail"]})
+
+
+def tail_threshold_ms(torch, dev, gen) -> dict:
+    """The fused driver on one leaf-layout batched sumcheck of TAIL_N
+    entries (the rounds above the tail on S1/S2 + T1, then one T2, the one
+    transfer and the host replay), for each T2 entry size in
+    TAIL_THRESHOLDS: {size: median ms of 3}."""
+    from spartan_tpu_torch.core import sumcheck_fused as SF
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.utils.transcript import Transcript
+
+    nP, nS = SC_PAR, SC_SEQ
+    I = nP + nS
+    saved = SF.SMALL_BUCKET_N
+    out = {}
+    try:
+        for small in TAIL_THRESHOLDS:
+            SF.SMALL_BUCKET_N = small
+            times = []
+            for _ in range(3):
+                tabs = [rand_canon(torch, F.FR, TAIL_N, gen) for _ in range(2 * I + 1 + nS)]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                SF.prove_cubic_batched_fused(5, TAIL_N.bit_length() - 1, tabs[:I], tabs[I:2 * I],
+                                             tabs[2 * I + 1:], tabs[2 * I], nP,
+                                             list(range(3, 3 + I)), Transcript(b"tail"))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            out[str(small)] = sorted(times)[1]
+    finally:
+        SF.SMALL_BUCKET_N = saved
+    return out
+
+
 def prod_round_ms(torch, dev, gen, n: int) -> dict:
     """S2's fold + evals step on the leaf layer's 18 instances at n entries
     each, against its plain version, timed as raw launches."""
@@ -886,6 +1053,39 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
         rejected = False
     if not rejected:
         raise AssertionError(f"a corrupted {pcs} SNARK proof was accepted")
+
+    # the same prove on the per-round path (the same bytes, no T1 or T2),
+    # then on the fused path again: the two paths in turns
+    from spartan_tpu_torch.core import sumcheck_fused as SF
+
+    turns = []
+    saved = SF.FUSED
+    for fused in (False, None):
+        SF.FUSED = fused
+        try:
+            K.reset_counts()
+            Timer.collect()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = SNARK.prove(inst, comm, decomm, vars_, inputs, gens,
+                                Transcript(b"chip_smoke"),
+                                RandomTape(b"chip_smoke", seed=bytes([5]) * 32))
+            torch.cuda.synchronize()
+            turns.append((time.perf_counter() - t, phases(), K.counts()))
+            Timer.collect(False)
+        finally:
+            SF.FUSED = saved
+        if serialize(again) != raw:
+            raise AssertionError(f"{pcs}: the {'per-round' if fused is False else 'fused'} "
+                                 f"prove's proof differs from the first one")
+        del again
+    counts_off = turns[0][2]
+    if counts_off["sc_transcript"] or counts_off["sc_tail"]:
+        raise AssertionError(f"{pcs}: the per-round prove launched T1/T2: {counts_off}")
+
+    def plp(ph):
+        return sum(x["s"] for x in ph if x["label"] == "product_layer_proof")
+
     line = {"phase": "snark" if pcs == "hyrax" else "snark_kzg", "pcs": pcs, "log2": log2,
             "num_cons": n, "num_nz_entries": nnz, "setup_s": setup_s}
     if pcs == "kzg":
@@ -899,6 +1099,13 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
           "encode_peak_device_bytes": encode_peak, "prove_peak_device_bytes": peak,
           "launches": counts, "kernel_totals": totals, "h2_launches": h2,
           "corrupted_rejected": True,
+          "fused_vs_per_round": {
+              "order": ["fused", "per-round", "fused"],
+              "prove_s": [prove_s, turns[0][0], turns[1][0]],
+              "product_layer_proof_s": [plp(prove_phases), plp(turns[0][1]),
+                                        plp(turns[1][1])],
+              "per_round_phases": turns[0][1], "per_round_launches": counts_off,
+              "same_proof": True},
           "encode_phases": encode_phases, "encode_acc": encode_acc,
           "prove_phases": prove_phases, "prove_acc": acc, "verify_phases": verify_phases})
     return counts, totals, gens
@@ -1017,9 +1224,11 @@ def run_ingest(torch, here: str) -> None:
 
 def run_cross(torch, log2: int, snark_log2: int) -> None:
     """Device-path proofs on the card == the same proofs on the CPU: the
-    NIZK, and the SNARK with either derefs commitment."""
+    NIZK, and the SNARK with either derefs commitment, the latter on the
+    card both on the fused and on the per-round product sumchecks."""
     from spartan_tpu_torch.config import SpartanConfig
     from spartan_tpu_torch.core import hostpath as HP
+    from spartan_tpu_torch.core import sumcheck_fused as SF
     from spartan_tpu_torch.io.keyless_bench import synthetic
     from spartan_tpu_torch.ops import field as F
     from spartan_tpu_torch.ops import kernels as K
@@ -1055,41 +1264,54 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
     # every device path at these sizes; the SNARK keeps the small MSMs of
     # its bullet reductions on the host C backend (their plain versions
     # on the CPU would take minutes), its row commits and KZG MSMs go to
-    # the device
-    snark_lowered = (2, HP.HOST_MSM_N, 0, M.LADDER_N, 0)
-    lowered = {"nizk": (2, 4, 0, 4, 0), "snark": snark_lowered, "snark_kzg": snark_lowered}
+    # the device, and its fused product sumchecks run rounds above the
+    # tail (T1, S1/S2) from 2^6 entries down to T2's 2^5
+    snark_lowered = (2, HP.HOST_MSM_N, 0, M.LADDER_N, 0, 1 << 5)
+    lowered = {"nizk": (2, 4, 0, 4, 0, SF.SMALL_BUCKET_N), "snark": snark_lowered,
+               "snark_kzg": snark_lowered}
     srs_path = os.path.join(subdir("cache", "srs"), "smoke_cross.npz")
     if os.path.exists(srs_path):
         os.remove(srs_path)
     for what, fn in (("nizk", nizk), ("snark", snark),
                      ("snark_kzg", lambda device: snark(device, "kzg"))):
         saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N,
-                 F._HOST_CONVERT_N)
-        HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = \
-            lowered[what]
+                 F._HOST_CONVERT_N, SF.SMALL_BUCKET_N, SF.FUSED)
+        (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N,
+         SF.SMALL_BUCKET_N) = lowered[what]
+        # the card on the fused path (its default), the card on the
+        # per-round path, the CPU (per-round by default)
+        runs = (("cuda", None), ("cuda", False), ("cpu", None)) if what != "nizk" \
+            else (("cuda", None), ("cpu", None))
         try:
             out = {}
-            for device in ("cuda", "cpu"):
+            for device, fused in runs:
+                SF.FUSED = fused
                 K.reset_counts()
                 t = time.perf_counter()
                 res = fn(device)
                 torch.cuda.synchronize()
-                out[device] = (serialize(res), time.perf_counter() - t, K.counts())
+                key = device if fused is None else f"{device}_per_round"
+                out[key] = (serialize(res), time.perf_counter() - t, K.counts())
         finally:
-            HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = \
-                saved
-        same = out["cuda"][0] == out["cpu"][0]
+            (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N,
+             SF.SMALL_BUCKET_N, SF.FUSED) = saved
+        same = all(v[0] == out["cpu"][0] for v in out.values())
         emit({"phase": "cross", "what": what, "log2": log2 if what == "nizk" else snark_log2,
               "identical": same, "sha256": hashlib.sha256(out["cuda"][0]).hexdigest(),
-              "cuda_s": out["cuda"][1], "cpu_s": out["cpu"][1],
-              "cuda_launches": out["cuda"][2], "cpu_launches": out["cpu"][2]})
+              **{f"{k}_s": v[1] for k, v in out.items()},
+              **{f"{k}_launches": v[2] for k, v in out.items()}})
         if not same:
-            raise AssertionError(f"{what}: the card's proof differs from the CPU proof")
-        # the card's run went through the kernels, the CPU run through none
+            raise AssertionError(f"{what}: the card's proofs differ from the CPU proof")
+        # the card's fused run went through every kernel, its per-round run
+        # through S2 and not T1/T2, the CPU run through none
         need = NIZK_KERNELS if what == "nizk" else tuple(SOURCES)
         if min(out["cuda"][2][k] for k in need) <= 0 or max(out["cpu"][2].values()) > 0:
             raise AssertionError(f"{what} cross check launches: {out['cuda'][2]}, "
                                  f"{out['cpu'][2]}")
+        per_round = out.get("cuda_per_round")
+        if per_round and (per_round[2]["sc_round_prod"] <= 0 or per_round[2]["sc_transcript"]
+                          or per_round[2]["sc_tail"]):
+            raise AssertionError(f"{what} per-round launches: {per_round[2]}")
 
 
 if __name__ == "__main__":

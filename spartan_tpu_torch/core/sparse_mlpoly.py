@@ -9,9 +9,11 @@ precomputed. Every device operation is
     gather -> H1 field multiply -> exact segment sums
 
 The segment sums replace the JAX package's ``_k_segment_sums_perm``
-(``sparse_mlpoly.py:36-50``, a log-depth field-add scan): the products'
+(``sparse_mlpoly.py:34-47``, a log-depth field-add scan): the products'
 16-bit limb columns are prefix-summed in int64 (exact), differenced at the
-segment boundaries and reduced mod p. No scatter, no multiplicity limit.
+segment boundaries and reduced mod p, in chunks of at most ``_SEG_CHUNK``
+terms whose pieces of one segment are then added mod p. No scatter, no
+multiplicity limit, any number of terms.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from spartan_tpu_torch.utils.math import next_power_of_two
 
 fr = F.fr
 
-# terms per exact prefix-sum pass (int64 columns stay below 2^40)
+# terms per exact prefix-sum chunk (int64 column sums stay below 2^40)
 _SEG_CHUNK = 1 << 24
 
 
@@ -34,11 +36,24 @@ def segment_sums(prods, starts, ends):
     """Exact field sums of prods[starts[s]:ends[s]] for each segment s.
 
     prods [N, 8] canonical Montgomery limbs; starts/ends [S] int64 (sorted
-    segments over the prefix array). Returns [S, 8]."""
-    assert prods.shape[0] < _SEG_CHUNK, "segment sums of more than 2^24 terms"
-    cols = F._to16(prods)                                   # [N, 16] int64
-    P = torch.cat((torch.zeros_like(cols[:1]), torch.cumsum(cols, dim=0)), dim=0)
-    return F.reduce_columns(P[ends] - P[starts], F.FR)
+    segments over the prefix array). Returns [S, 8].
+
+    Each chunk of at most ``_SEG_CHUNK`` terms is scanned as one contiguous
+    int64 array holding its 16 limb columns one after another (an inner,
+    not an outer-dimension, scan); a segment's column sums are differences
+    of that scan inside one column, so the columns' running offsets cancel.
+    The pieces of a segment that crosses chunk boundaries are added mod p."""
+    out = None
+    for c0 in range(0, max(prods.shape[0], 1), _SEG_CHUNK):
+        n = min(prods.shape[0] - c0, _SEG_CHUNK)
+        flat = F._to16(prods[c0:c0 + n]).t().reshape(-1)           # [16 n]
+        P = torch.cat((flat.new_zeros(1), torch.cumsum(flat, dim=0)))
+        base = torch.arange(16, device=prods.device) * n
+        lo = (starts.clamp(c0, c0 + n) - c0).unsqueeze(1) + base
+        hi = (ends.clamp(c0, c0 + n) - c0).unsqueeze(1) + base
+        part = F.reduce_columns(P[hi] - P[lo], F.FR)
+        out = part if out is None else fr.add(out, part)
+    return out
 
 
 def _k_segment_sums_perm(vals, weights, widx, perm, starts, ends):

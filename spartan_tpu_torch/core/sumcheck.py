@@ -1,4 +1,4 @@
-"""Sumcheck engines: the plain batched product sumcheck and the ZK ones.
+"""Sumcheck engines: the batched product sumcheck and the ZK ones.
 
 Counterpart of ``spartan_tpu/core/sumcheck.py`` (reference sumcheck.rs)
 on one device. Per round, the round polynomial's evaluations at {0, 2, 3}
@@ -7,12 +7,20 @@ the top variable, lo + r * (hi - lo), are the fused round kernels of
 ``ops/sumcheck_kernels.py``: a round folds every table by the previous
 challenge and computes the next round's evaluations in one launch (S2 for
 the product layers, S3 for ZK phase 1, S4 for ZK phase 2; S1 folds alone
-where the next round runs on the host). Tables stay in natural order.
-The host drives the transcript and the tiny per-round algebra; the ZK
-variants also commit each round polynomial and prove the two claims with a
-batched DotProductProof. Tables of at most ``hostpath.HOST_N`` entries
-finish the rounds on the host. The JAX package's mesh branches and fused
-device-transcript tail are not ported.
+where the next round runs elsewhere). Tables stay in natural order.
+
+On a card the batched product sumcheck hands all its rounds to the fused
+driver (``core/sumcheck_fused.py``): the
+challenges are squeezed on the device (T1 above ``SMALL_BUCKET_N``
+entries, the whole tail in one T2 launch) and the host replays the
+transcript once at the end. Only the per-round path (on the CPU by
+default, or with ``SPARTAN_TPU_FUSED=0``) and the ZK sumchecks drive the
+host transcript round by round: the host reads each round's evaluations
+and the variants' tiny per-round algebra, the ZK ones also committing each
+round polynomial and proving the two claims with a batched
+DotProductProof; there, tables of at most ``hostpath.HOST_N`` entries
+finish their rounds on the host in Python ints. The JAX package's mesh
+branches are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from dataclasses import dataclass
 
 from spartan_tpu_torch.core import hostpath as HP
 from spartan_tpu_torch.core import mle
+from spartan_tpu_torch.core import sumcheck_fused as SF
 from spartan_tpu_torch.core.commitments import MultiCommitGens, commit, commit_scalar
 from spartan_tpu_torch.core.group import GroupElem
 from spartan_tpu_torch.core.nizk import DotProductProof
@@ -79,8 +88,11 @@ class SumcheckInstanceProof:
         B_list, C_list) with per-instance C. All tables have equal length.
         A device round is one S2 launch over every instance (the shared C
         is folded once by S1 first); the evaluations come back in the
-        order the transcript batches them (sumcheck.rs:229-241). Every
-        input table is consumed (its ``Z`` is dropped once folded).
+        order the transcript batches them (sumcheck.rs:229-241). On a card
+        (unless ``SF.FUSED`` says otherwise) every round runs in the fused
+        driver, chosen before the host-int switch at ``HOST_N`` as in the
+        JAX package (``sumcheck.py:640-657``). Every input table is
+        consumed (its ``Z`` is dropped once folded).
         Returns (proof, r, (A_par(r), B_par(r), C(r)), (A_seq(r),
         B_seq(r), C_seq(r))).
         """
@@ -97,6 +109,11 @@ class SumcheckInstanceProof:
         # consumed inputs: from here the tables live only in TA/TB/TC/Cp
         for p in (*A_par, *B_par, C_par, *A_seq, *B_seq, *C_seq):
             p.Z = None
+
+        if num_rounds and SF.fused_enabled(dev):
+            polys, r, claims_prod, claims_dotp = SF.prove_cubic_batched_fused(
+                claim, num_rounds, TA, TB, TC, Cp, nP, coeffs, transcript)
+            return SumcheckInstanceProof(polys), r, claims_prod, claims_dotp
 
         e = claim % FR_MOD
         r: list[int] = []

@@ -4,7 +4,8 @@ Each kernel source under ``spartan_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library with a plain
 C interface and loaded with ``ctypes``. Libraries are built on first use
 into ``build/kernels`` (see ``utils/cachedir.py``), keyed by a hash of the
-source, the shared header ``bn254.cuh`` and the flags, so an unchanged
+source, the shared headers (``bn254.cuh``, ``transcript.cuh``) and the
+flags, so an unchanged
 source is never rebuilt. ``build_all`` starts one ``nvcc`` per missing
 library, all at once, and waits for them together; ptxas's report of each
 kernel's registers and spills is kept beside the library (``ptxas``).
@@ -37,7 +38,7 @@ from spartan_tpu_torch.utils.cachedir import subdir
 from spartan_tpu_torch.utils.timer import Timer
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-HEADER = "bn254.cuh"
+HEADERS = ("bn254.cuh", "transcript.cuh")
 SOURCES = {
     "field_ew": "field_ew.cu",          # H1
     "curve_ew": "curve_ew.cu",          # H2
@@ -47,6 +48,8 @@ SOURCES = {
     "sc_round_prod": "sc_round_prod.cu",          # S2
     "sc_round_additive": "sc_round_additive.cu",  # S3
     "sc_round_quad": "sc_round_quad.cu",          # S4
+    "sc_transcript": "sc_transcript.cu",          # T1
+    "sc_tail": "sc_tail.cu",                      # T2
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -67,6 +70,8 @@ _SIGNATURES = {
     "sc_round_prod": {"sc_round_prod_launch": [_I, _U64P, _I, _P, _L, _I, _P, _P]},
     "sc_round_additive": {"sc_round_additive_launch": [_I, _U64P, _P, _L, _I, _P, _P]},
     "sc_round_quad": {"sc_round_quad_launch": [_I, _U64P, _P, _L, _I, _P, _P]},
+    "sc_transcript": {"sc_transcript_launch": [_P, _P, _I] + [_P] * 5},
+    "sc_tail": {"sc_tail_launch": [_P, _I, _L, _I, _I] + [_P] * 6 + [_I, _I, _P]},
 }
 
 _libs: dict = {}
@@ -85,7 +90,7 @@ def nvcc_path() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for fn in (SOURCES[name], HEADER):
+    for fn in (SOURCES[name], *HEADERS):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

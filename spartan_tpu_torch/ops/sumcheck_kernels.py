@@ -16,7 +16,11 @@ dispatch site of the sumcheck drivers:
 * S3 ``csrc/sc_round_additive.cu`` ``additive_evals`` / ``additive_step``:
   the same for sum T*(A*B - C);
 * S4 ``csrc/sc_round_quad.cu`` ``quad_evals`` / ``quad_step``: (e0, e2)
-  of sum A*B.
+  of sum A*B;
+* T2 ``csrc/sc_tail.cu`` ``prod_tail``: every remaining round of a batched
+  product sumcheck on small tables in one launch (S2's evaluations, T1's
+  Fiat-Shamir step of ``ops/transcript_device.py``, S1's fold, round after
+  round), for the fused driver ``core/sumcheck_fused.py``.
 
 A step's evaluations are those of the folded tables, i.e. of the next
 round. The kernels write canonical per-block partial sums; the wrappers sum
@@ -40,6 +44,7 @@ import torch
 
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import kernels as K
+from spartan_tpu_torch.ops import transcript_device as TD
 from spartan_tpu_torch.ops.limbs import NUM_LIMBS
 
 fr = F.fr
@@ -48,6 +53,7 @@ THREADS = 256        # threads per block of every S kernel
 TOTAL_BLOCKS = 2048  # blocks per launch, shared among its instances
 FOLD_MAX = 64        # tables per S1 launch (SC_FOLD_MAX)
 PROD_MAX = 32        # instances per S2 launch (SC_PROD_MAX)
+TAIL_THREADS = 512   # threads of T2's one block (SC_TAIL_THREADS)
 
 
 # ---------------------------------------------------------------------------
@@ -67,8 +73,9 @@ def _sub(a, b):
 
 
 def _halves(T):
-    h = T.shape[0] // 2
-    return T[:h], T[h:2 * h]
+    """Low and high halves of tables [..., n, 8] (the top variable)."""
+    h = T.shape[-2] // 2
+    return T[..., :h, :], T[..., h:2 * h, :]
 
 
 def _extrapolate(lo, hi):
@@ -82,16 +89,17 @@ def fold_plain(T, r):
     return _add(lo, _mul(r, _sub(hi, lo)))
 
 
+def _prod_evals_stacked(A, B, C):
+    """(e0, e2, e3) of each instance, [3I, 8], from stacked tables [I, n, 8]."""
+    X = torch.stack((A, B, C))                            # [3, I, n, 8]
+    lo, hi = _halves(X)
+    p2, p3 = _extrapolate(lo, hi)
+    pts = torch.stack((lo, p2, p3), dim=2)                # [3, I, 3, n/2, 8]
+    return fr.reduce_sum(_mul(_mul(pts[0], pts[1]), pts[2]), axis=2).reshape(-1, NUM_LIMBS)
+
+
 def prod_evals_plain(A, B, C):
-    out = []
-    for a, b, c in zip(A, B, C):
-        (aL, aH), (bL, bH), (cL, cH) = _halves(a), _halves(b), _halves(c)
-        a2, a3 = _extrapolate(aL, aH)
-        b2, b3 = _extrapolate(bL, bH)
-        c2, c3 = _extrapolate(cL, cH)
-        for x, y, z in ((aL, bL, cL), (a2, b2, c2), (a3, b3, c3)):
-            out.append(fr.reduce_sum(_mul(_mul(x, y), z), axis=0))
-    return torch.stack(out, dim=0)
+    return _prod_evals_stacked(torch.stack(A), torch.stack(B), torch.stack(C))
 
 
 def prod_step_plain(A, B, C, r, fold_c):
@@ -100,6 +108,20 @@ def prod_step_plain(A, B, C, r, fold_c):
     C2 = [fold_plain(c, r) if f else None for c, f in zip(C, fold_c)]
     Ce = [c2 if f else c for c, c2, f in zip(C, C2, fold_c)]
     return A2, B2, C2, prod_evals_plain(A2, B2, Ce)
+
+
+def prod_tail_plain(A, B, Cp, Cs, coeffs, claim, sponge, polys_out, rs_out):
+    """Plain version of T2: round by round, ``prod_evals_plain``, T1's
+    plain step, ``fold_plain`` of every table."""
+    I = len(A)
+    nP = I - len(Cs)
+    T = torch.stack(list(A) + list(B) + [Cp] + list(Cs))  # [2I + 1 + nS, n, 8]
+    for j in range(Cp.shape[0].bit_length() - 1):
+        C = torch.cat((T[2 * I:2 * I + 1].expand(nP, -1, -1), T[2 * I + 1:]))
+        ev = _prod_evals_stacked(T[:I], T[I:2 * I], C)
+        TD.round_transcript_plain(ev, coeffs, claim, sponge, polys_out[j], rs_out[j])
+        T = fold_plain(T, rs_out[j])
+    return T[:, 0]
 
 
 def additive_evals_plain(T, A, B, C):
@@ -261,6 +283,46 @@ def prod_step(A, B, C, r, fold_c):
 
 
 # ---------------------------------------------------------------------------
+# T2: the small-table tail of a batched product sumcheck
+# ---------------------------------------------------------------------------
+
+def prod_tail(A, B, Cp, Cs, coeffs, claim, sponge, polys_out, rs_out):
+    """Every remaining round of a batched product sumcheck, in one launch
+    (kernel T2): the instances' tables A_k, B_k [n, 8] (n = 2^rounds), the
+    shared C ``Cp`` of the first I - len(Cs) instances and the own C of the
+    rest; ``coeffs`` [I, 8] the layer coefficients. Round j's coefficients
+    go to ``polys_out[j]`` [4, 8] and its challenge to ``rs_out[j]``;
+    ``claim`` [8] and the packed ``sponge`` advance in place. The inputs are
+    not changed (T2 folds a stacked copy). Returns the final values [2I + 1
+    + len(Cs), 8]: A_k(r), B_k(r), Cp(r), then each own C(r)."""
+    A, B, Cs = list(A), list(B), list(Cs)
+    if Cp.device.type == "cpu":
+        return prod_tail_plain(A, B, Cp, Cs, coeffs, claim, sponge, polys_out, rs_out)
+    dev, n = Cp.device, Cp.shape[0]
+    I, nS = len(A), len(Cs)
+    rounds = n.bit_length() - 1
+    if n != 1 << rounds or len(B) != I or nS > I:
+        raise ValueError(f"sc_tail: {I} instances, {nS} own C, tables of {n} entries")
+    tabs = A + B + [Cp] + Cs
+    _check("sc_tail", tabs, n, dev)
+    for name, t, shape in (("coeffs", coeffs, (I, NUM_LIMBS)), ("claim", claim, (NUM_LIMBS,)),
+                           ("sponge", sponge, (TD.SPONGE_WORDS,)),
+                           ("polys_out", polys_out, (rounds, 4, NUM_LIMBS)),
+                           ("rs_out", rs_out, (rounds, NUM_LIMBS))):
+        TD._check_t(name, t, shape, dev)
+    with K.timed("sc_tail", "tail", len(tabs) * n, dev) as launch:
+        T = torch.stack(tabs)
+        finals = _empty(len(tabs), dev)
+        rc = launch(K.lib("sc_tail").sc_tail_launch, T.data_ptr(), len(tabs), n, I, I - nS,
+                    coeffs.data_ptr(), claim.data_ptr(), sponge.data_ptr(),
+                    polys_out.data_ptr(), rs_out.data_ptr(), finals.data_ptr(), rounds,
+                    TAIL_THREADS, K.stream(dev))
+        K.count("sc_tail")
+    K.check(rc, "sc_tail")
+    return finals
+
+
+# ---------------------------------------------------------------------------
 # S3 / S4: the ZK sumchecks' rounds
 # ---------------------------------------------------------------------------
 
@@ -316,7 +378,8 @@ def quad_step(A, B, r):
     return _launch_single("sc_round_quad", 2, True, (A, B), r)
 
 
-__all__ = ["fold", "prod_evals", "prod_step", "additive_evals", "additive_step",
+__all__ = ["fold", "prod_evals", "prod_step", "prod_tail", "additive_evals", "additive_step",
            "quad_evals", "quad_step", "fold_plain", "prod_evals_plain", "prod_step_plain",
+           "prod_tail_plain",
            "additive_evals_plain", "additive_step_plain", "quad_evals_plain",
            "quad_step_plain"]

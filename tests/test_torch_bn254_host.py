@@ -4,9 +4,12 @@ plain PyTorch versions, bit for bit.
 The host build runs the header's carry-chain field arithmetic with each
 PTX carry instruction emulated (one thread-local carry flag), so it checks
 the word-by-word algorithm every kernel runs: the Montgomery product, adds
-and subtracts, the complete formulas and H2's two ladders. The PTX itself
-is checked only on the card (``chip_smoke.py``, the ``gpu`` tests). The
-harness below is compiled with ``g++`` into a temporary library.
+and subtracts, the complete formulas and H2's two ladders. The transcript
+header ``csrc/transcript.cuh`` (T1 and T2's sponge and round step) is built
+with it and held to ``utils/strobe.py``, ``ops/keccak.py`` and the plain
+versions of ``ops/transcript_device.py``. The PTX itself is checked only on
+the card (``chip_smoke.py``, the ``gpu`` tests). The harness below is
+compiled with ``g++`` into a temporary library.
 """
 
 import ctypes
@@ -23,6 +26,9 @@ from spartan_tpu_torch.ops import curve as CU
 from spartan_tpu_torch.ops import curve_host as CH
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import fields_host as fh
+from spartan_tpu_torch.ops import transcript_device as TD
+from spartan_tpu_torch.ops.keccak import keccak_f1600
+from spartan_tpu_torch.utils.transcript import Transcript
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "spartan_tpu_torch", "csrc")
@@ -63,6 +69,33 @@ extern "C" void scalar_mul(const uint32_t* k, int nbits, const uint4* x, const u
   for (long i = 0; i < n; i++)
     store_point(ox, oy, oz, i, scalar_mul_ladder(load_point(x, y, z, i), k + 8 * i, nbits));
 }
+
+#include "transcript.cuh"
+
+extern "C" void tr_keccak(uint64_t* lanes) { sctr::keccak_f1600(lanes); }
+
+// one STROBE operation on a packed sponge: 0 meta_ad, 1 ad, 2 prf
+extern "C" void tr_op(int32_t* sponge, int op, const uint8_t* data, int n, uint8_t* out) {
+  sctr::Sponge sp;
+  memcpy(&sp, sponge, sizeof(sp));
+  if (op == 2) {
+    sctr::begin_op(sp, sctr::FLAG_I | sctr::FLAG_A | sctr::FLAG_C);
+    sctr::squeeze(sp, out, n);
+  } else {
+    sctr::begin_op(sp, op == 0 ? (sctr::FLAG_M | sctr::FLAG_A) : sctr::FLAG_A);
+    sctr::absorb(sp, data, n);
+  }
+  memcpy(sponge, &sp, sizeof(sp));
+}
+
+extern "C" void tr_bytes64(const uint8_t* b, uint32_t* out) {
+  sctr::st(out, 0, sctr::bytes64_to_fr(b));
+}
+
+extern "C" void tr_round(const uint32_t* evals, const uint32_t* coeffs, int ninst,
+                         uint32_t* claim, int32_t* sponge, uint32_t* poly, uint32_t* r) {
+  sctr::round_step(evals, coeffs, ninst, claim, sponge, poly, r);
+}
 """
 
 
@@ -77,7 +110,8 @@ def lib(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{CSRC}", "-o",
                     str(so), str(src)], check=True, capture_output=True, timeout=120)
     h = ctypes.CDLL(str(so))
-    for fn in (h.field_op, h.point_op, h.horner, h.scalar_mul):
+    for fn in (h.field_op, h.point_op, h.horner, h.scalar_mul, h.tr_keccak, h.tr_op,
+               h.tr_bytes64, h.tr_round):
         fn.restype = None
     return h
 
@@ -146,3 +180,58 @@ def test_scalar_mul_ladder_matches_plain(lib):
     out = _out_like(P)
     lib.scalar_mul(_p(sc), 254, *map(_p, P), ctypes.c_long(4), *map(_p, out))
     assert all(torch.equal(o, w) for o, w in zip(out, CU.scalar_mul_plain(sc, P, 254)))
+
+
+def test_transcript_header_matches_strobe(lib):
+    """Keccak-f[1600] and the STROBE operations of transcript.cuh against
+    ops/keccak.py and utils/strobe.py, on a packed sponge."""
+    rng = np.random.default_rng(13)
+    lanes = [int(v) for v in rng.integers(0, 1 << 63, size=25, dtype=np.uint64) * 2 + 1]
+    arr = np.asarray(lanes, dtype=np.uint64)
+    lib.tr_keccak(arr.ctypes.data_as(ctypes.c_void_p))
+    assert [int(v) for v in arr] == keccak_f1600(lanes)
+
+    t = Transcript(b"header")
+    h = t.strobe
+    sponge = TD.pack_sponge(t, "cpu")
+    out = np.zeros(200, dtype=np.uint8)
+    for _ in range(60):
+        op = int(rng.integers(0, 3))
+        n = int(rng.integers(1, 180))
+        data = np.frombuffer(rng.bytes(n), dtype=np.uint8).copy()
+        lib.tr_op(_p(sponge), op, data.ctypes.data_as(ctypes.c_void_p), n,
+                  out.ctypes.data_as(ctypes.c_void_p))
+        if op == 0:
+            h.meta_ad(data.tobytes(), False)
+        elif op == 1:
+            h.ad(data.tobytes(), False)
+        else:
+            assert out[:n].tobytes() == h.prf(n, False)
+    assert TD.unpack_sponge(sponge) == (bytes(h.state), h.pos, h.pos_begin)
+
+
+def test_transcript_header_round_matches_plain(lib):
+    """transcript.cuh's 64-byte challenge reduction and T1's round step
+    (the function the kernel runs) against the plain versions, over a
+    chain of rounds on one sponge."""
+    rng = np.random.default_rng(14)
+    for raw in [b"\xff" * 64, bytes(64)] + [rng.bytes(64) for _ in range(6)]:
+        b = np.frombuffer(raw, dtype=np.uint8).copy()
+        got = torch.zeros(8, dtype=torch.int32)
+        lib.tr_bytes64(b.ctypes.data_as(ctypes.c_void_p), _p(got))
+        assert torch.equal(got, TD.bytes64_to_fr_mont(torch.from_numpy(b)))
+
+    I = 18
+    t = Transcript(b"round chain")
+    sponges = [TD.pack_sponge(t, "cpu") for _ in range(2)]
+    claims = [F.encode_fr([99], device="cpu")[0].clone() for _ in range(2)]
+    coeffs = rand_field(F.FR, I, 15)
+    for j in range(12):
+        evals = rand_field(F.FR, 3 * I, 16 + j)
+        outs = [(torch.zeros((4, 8), dtype=torch.int32), torch.zeros(8, dtype=torch.int32))
+                for _ in range(2)]
+        lib.tr_round(_p(evals), _p(coeffs), I, _p(claims[0]), _p(sponges[0]),
+                     _p(outs[0][0]), _p(outs[0][1]))
+        TD.round_transcript_plain(evals, coeffs, claims[1], sponges[1], *outs[1])
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+    assert torch.equal(claims[0], claims[1]) and torch.equal(sponges[0], sponges[1])

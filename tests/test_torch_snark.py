@@ -22,6 +22,7 @@ import torch
 from spartan_tpu_torch import interop
 from spartan_tpu_torch.core import hostpath as HP
 from spartan_tpu_torch.core import mle
+from spartan_tpu_torch.core import sumcheck_fused as SF
 from spartan_tpu_torch.core.mle import DensePolynomial, IdentityPolynomial
 from spartan_tpu_torch.config import SpartanConfig
 from spartan_tpu_torch.core.product_tree import (
@@ -80,7 +81,8 @@ def snarks(request, tmp_path_factory):
     jcomm, jdecomm = JS.SNARK.encode(jinst, jgens)
     jproof = JS.SNARK.prove(jinst, jcomm, jdecomm, jvars, jinputs, jgens, JTranscript(LABEL),
                             JRandomTape(b"snark_proof", seed=TAPE_SEED))
-    return {"pcs": pcs, "inst": inst, "inputs": _assignment(jinputs), "gens": gens,
+    return {"pcs": pcs, "inst": inst, "vars": _assignment(jvars),
+            "inputs": _assignment(jinputs), "gens": gens,
             "comm": comm,
             "decomm": decomm, "proof": proof, "jinst": jinst, "jinputs": jinputs,
             "jgens": jgens, "jcomm": jcomm, "jdecomm": jdecomm, "jproof": jproof}
@@ -96,6 +98,20 @@ def test_proof_bytes_match_jax(snarks):
     from spartan_tpu.utils.serialization import serialize as jax_serialize
 
     assert serialize(snarks["proof"]) == jax_serialize(snarks["jproof"])
+
+
+def test_fused_proof_bytes_match_jax(snarks, monkeypatch):
+    """Proved again with the fused product-sumcheck path (the device
+    transcript and the tail on their plain versions), the proof has the
+    per-round path's bytes, which are spartan_tpu's."""
+    from spartan_tpu.utils.serialization import serialize as jax_serialize
+
+    monkeypatch.setattr(SF, "FUSED", True)
+    monkeypatch.setattr(HP, "HOST_N", 2)
+    proof = SNARK.prove(snarks["inst"], snarks["comm"], snarks["decomm"], snarks["vars"],
+                        snarks["inputs"], snarks["gens"], Transcript(LABEL),
+                        RandomTape(b"snark_proof", seed=TAPE_SEED))
+    assert serialize(proof) == serialize(snarks["proof"]) == jax_serialize(snarks["jproof"])
 
 
 def test_jax_verifier_accepts_port_proof(snarks):

@@ -1,0 +1,296 @@
+"""The port's device transcript and fused sumcheck tail on the CPU.
+
+Every case runs the plain versions (what T1 and T2 run on a CPU tensor)
+and holds them to the port's host transcript, to ``utils/strobe.py``, to
+the per-round batched sumcheck, or to ``spartan_tpu``'s per-round prover:
+the cases of ``tests/test_transcript_device.py`` on the port. The ``gpu``
+cases hold the kernels T1 and T2 to their plain versions. All arithmetic is
+exact, so every comparison is equality. The JAX package is imported
+inside the test that uses it.
+"""
+
+import secrets
+
+import numpy as np
+import pytest
+import torch
+
+from spartan_tpu_torch.core import hostpath as HP
+from spartan_tpu_torch.core import sumcheck_fused as SF
+from spartan_tpu_torch.core.mle import DensePolynomial
+from spartan_tpu_torch.core.sumcheck import SumcheckInstanceProof
+from spartan_tpu_torch.ops import field as F
+from spartan_tpu_torch.ops import kernels as K
+from spartan_tpu_torch.ops import sumcheck_kernels as SK
+from spartan_tpu_torch.ops import transcript_device as TD
+from spartan_tpu_torch.ops.keccak import _keccak_f1600_bytes_py
+from spartan_tpu_torch.utils.strobe import Strobe128
+from spartan_tpu_torch.utils.transcript import Transcript
+
+P = F.FR.modulus
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its cases are many small
+    tensor ops, which a parallel test run slows by tens of times when each
+    op waits for threads the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _u8(b: bytes) -> torch.Tensor:
+    return torch.tensor(list(b), dtype=torch.uint8)
+
+
+def test_keccak_f1600_matches_host():
+    rng = np.random.default_rng(7)
+    st = rng.integers(0, 256, (4, 200)).astype(np.uint8)
+    got = TD.keccak_f1600_lanes(torch.from_numpy(st.copy()).view(torch.int64))
+    for k in range(4):
+        ref = bytearray(st[k].tobytes())
+        _keccak_f1600_bytes_py(ref)
+        assert bytes(got[k].contiguous().view(torch.uint8).tolist()) == bytes(ref)
+    one = TD.keccak_f1600_state(torch.from_numpy(st[0].copy()))
+    assert torch.equal(one, got[0].contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("tensor_data", [False, True])
+def test_strobe_matches_host(tensor_data):
+    """The tensor-position strobe against utils/strobe.py, with the
+    absorbed data given as bytes or as a uint8 tensor."""
+    rng = np.random.default_rng(11 + tensor_data)
+    h = Strobe128(b"Merlin v1.0")
+    d = TD.DynStrobe(_u8(bytes(h.state)), h.pos, h.pos_begin)
+    for _ in range(40):
+        op = rng.integers(0, 3)
+        data = secrets.token_bytes(int(rng.integers(1, 150)))
+        ddata = _u8(data) if tensor_data else data
+        if op == 0:
+            h.meta_ad(data, False)
+            d.meta_ad_op(ddata)
+        elif op == 1:
+            h.ad(data, False)
+            d.ad_op(ddata)
+        else:
+            n = int(rng.integers(1, 100))
+            assert h.prf(n, False) == bytes(d.prf(n).tolist())
+    assert bytes(h.state) == bytes(d.state.tolist())
+    assert h.pos == int(d.pos)
+    assert h.pos_begin == int(d.pos_begin)
+
+
+def test_challenge_scalar_matches_host():
+    t = Transcript(b"device parity")
+    dt = TD.DynTranscript.from_sponge(TD.pack_sponge(t, "cpu"))
+    s = 98765432123456789 ** 3 % P
+    t.append_scalar(b"sc", s)
+    dt.append_message(b"sc", TD.frs_to_bytes_dev(F.encode_fr([s], device="cpu"))[0])
+    t.append_message(b"m", b"hello")
+    dt.append_message(b"m", b"hello")
+    assert t.challenge_scalar(b"ch") == F.decode_fr(dt.challenge_scalar(b"ch")[None])[0]
+    state, pos, pos_begin = dt.carry()
+    assert bytes(t.strobe.state) == bytes(state.tolist())
+    assert (t.strobe.pos, t.strobe.pos_begin) == (int(pos), int(pos_begin))
+    # 64 bytes of 0xFF: both halves above 5p, reduced as from_le_bytes_mod_order
+    ff = _u8(b"\xff" * 64)
+    assert F.decode_fr(TD.bytes64_to_fr_mont(ff)[None])[0] == ((1 << 512) - 1) % P
+
+
+def test_round_step_packs_sponge():
+    """T1's plain step on the packed sponge leaves the host transcript's
+    state after the same round, and r is the host's challenge."""
+    t = Transcript(b"round")
+    t.append_message(b"x", b"y" * 150)   # a position that makes the round cross blocks
+    sponge = TD.pack_sponge(t, "cpu")
+    rng = np.random.default_rng(5)
+    I = 3
+    ev = [int(v) % P for v in rng.integers(1, 1 << 62, size=3 * I)]
+    co = [int(v) % P for v in rng.integers(1, 1 << 62, size=I)]
+    e = 123456789
+    evals, coeffs = F.encode_fr(ev, device="cpu"), F.encode_fr(co, device="cpu")
+    claim = F.encode_fr([e], device="cpu")[0].clone()
+    poly, r = torch.zeros((4, 8), dtype=torch.int32), torch.zeros(8, dtype=torch.int32)
+    TD.round_transcript_plain(evals, coeffs, claim, sponge, poly, r)
+
+    from spartan_tpu_torch.core.unipoly import UniPoly
+
+    c = [sum(ev[3 * i + k] * co[i] for i in range(I)) % P for k in range(3)]
+    up = UniPoly.from_evals([c[0], (e - c[0]) % P, c[1], c[2]])
+    up.append_to_transcript(b"poly", t)
+    r_host = t.challenge_scalar(b"challenge_nextround")
+    assert F.decode_fr(poly) == up.coeffs
+    assert F.decode_fr(r[None])[0] == r_host
+    assert F.decode_fr(claim[None])[0] == up.evaluate(r_host)
+    assert TD.unpack_sponge(sponge) == (bytes(t.strobe.state), t.strobe.pos, t.strobe.pos_begin)
+
+
+def _instance(n, nP, nS):
+    rng = np.random.default_rng(n + nP)
+
+    def dpoly():
+        return DensePolynomial(F.encode_small_uints(
+            rng.integers(1, 1 << 32, size=n, dtype=np.uint64).astype(np.int64), device="cpu"))
+
+    A = [dpoly() for _ in range(nP + nS)]
+    B = [dpoly() for _ in range(nP + nS)]
+    Cp = dpoly()
+    Cs = [dpoly() for _ in range(nS)]
+    claim = int(rng.integers(1, 1 << 60))
+    coeffs = [int(rng.integers(1, 1 << 60)) for _ in range(nP + nS)]
+    return A, B, Cp, Cs, claim, coeffs
+
+
+_PER_ROUND: dict = {}   # per-round proofs, each shape proven once per module
+
+
+def _prove(monkeypatch, fused, n, nP, nS, label=b"fused equiv"):
+    key = (n, nP, nS, label)
+    if not fused and key in _PER_ROUND:
+        return _PER_ROUND[key]
+    monkeypatch.setattr(SF, "FUSED", fused)
+    A, B, Cp, Cs, claim, coeffs = _instance(n, nP, nS)
+    tr = Transcript(label)
+    res = SumcheckInstanceProof.prove_cubic_batched(
+        claim, n.bit_length() - 1, (A[:nP], B[:nP], Cp), (A[nP:], B[nP:], Cs), coeffs, tr)
+    if not fused:
+        _PER_ROUND[key] = res, tr
+    return res, tr
+
+
+@pytest.mark.parametrize("n,nP,nS,small", [
+    (64, 3, 0, None), (32, 2, 2, None), (128, 12, 6, None),
+    # the above-tail chain (S2 -> T1 -> S1/S2) at the leaf layout
+    (128, 12, 6, 16),
+    # above SMALL_BUCKET_N: rounds above the tail, then one T2
+    (8192, 1, 0, None), (16384, 1, 1, None),
+])
+def test_fused_sumcheck_bit_identical(monkeypatch, n, nP, nS, small):
+    if small is not None:
+        monkeypatch.setattr(SF, "SMALL_BUCKET_N", small)
+    (p1, r1, cp1, cd1), t1 = _prove(monkeypatch, True, n, nP, nS)
+    (p2, r2, cp2, cd2), t2 = _prove(monkeypatch, False, n, nP, nS)
+    assert [q.coeffs_except_linear_term for q in p1.compressed_polys] == \
+        [q.coeffs_except_linear_term for q in p2.compressed_polys]
+    assert r1 == r2
+    assert cp1 == cp2 and cd1 == cd2
+    assert bytes(t1.strobe.state) == bytes(t2.strobe.state)
+    assert (t1.strobe.pos, t1.strobe.pos_begin) == (t2.strobe.pos, t2.strobe.pos_begin)
+
+
+def test_fused_matches_jax_per_round(monkeypatch):
+    """The fused path (plain T2) gives spartan_tpu's per-round prover's
+    round polynomials, challenges and claims on the same tables."""
+    from spartan_tpu.core import sumcheck as JSC
+    from spartan_tpu.core.mle import DensePolynomial as JDP
+    from spartan_tpu.utils.transcript import Transcript as JTranscript
+    from spartan_tpu_torch import interop
+
+    import jax.numpy as jnp
+
+    n, nP, nS = 64, 3, 0
+    (proof, r, cp, cd), _ = _prove(monkeypatch, True, n, nP, nS, b"vs jax")
+    A, B, Cp, Cs, claim, coeffs = _instance(n, nP, nS)
+    j = lambda p: JDP(jnp.asarray(interop.from_port(p.Z)))
+    jproof, jr, jcp, jcd = JSC.SumcheckInstanceProof.prove_cubic_batched(
+        claim, 6, ([j(p) for p in A], [j(p) for p in B], j(Cp)), ([], [], []), coeffs,
+        JTranscript(b"vs jax"))
+    assert r == jr
+    assert [p.coeffs_except_linear_term for p in proof.compressed_polys] == \
+        [p.coeffs_except_linear_term for p in jproof.compressed_polys]
+    assert cp == (list(jcp[0]), list(jcp[1]), jcp[2])
+
+
+def test_diverging_device_sponge_raises(monkeypatch):
+    real = TD.pack_sponge
+
+    def corrupted(transcript, device):
+        s = real(transcript, device)
+        s[3] ^= 1
+        return s
+
+    monkeypatch.setattr(TD, "pack_sponge", corrupted)
+    with pytest.raises(RuntimeError, match="diverged from host at round 0"):
+        _prove(monkeypatch, True, 32, 2, 2)
+
+
+def test_fused_off_on_cpu_by_default(monkeypatch):
+    monkeypatch.setattr(SF, "FUSED", None)
+    assert not SF.fused_enabled(torch.device("cpu"))
+    assert SF.fused_enabled(torch.device("cuda"))
+    monkeypatch.setattr(SF, "FUSED", False)
+    assert not SF.fused_enabled(torch.device("cuda"))
+    monkeypatch.setattr(SF, "FUSED", True)
+    assert SF.fused_enabled(torch.device("cpu"))
+
+
+def test_host_threshold_does_not_change_fused_rounds(monkeypatch):
+    """With the fused path on, HOST_N no longer decides anything for the
+    batched product sumcheck (it goes to T2 before the host switch)."""
+    monkeypatch.setattr(HP, "HOST_N", 2)
+    (p1, r1, cp1, _), _ = _prove(monkeypatch, True, 64, 2, 1)
+    monkeypatch.setattr(HP, "HOST_N", 2048)
+    (p2, r2, cp2, _), _ = _prove(monkeypatch, True, 64, 2, 1)
+    assert r1 == r2 and cp1 == cp2
+
+
+# ---------------------------------------------------------------------------
+# T1 and T2 against their plain versions (skip without a card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _tables(seed, k, n, device):
+    rng = np.random.default_rng(seed)
+    vals = [int(v) % P for v in rng.integers(1, 1 << 62, size=k * n)]
+    return list(F.encode_fr(vals, device=device).reshape(k, n, 8).unbind(0))
+
+
+@pytest.mark.gpu
+def test_t1_chain_matches_plain(cuda):
+    """30 rounds of T1 on one sponge against the plain step: every r and
+    coefficient, the claim and the final packed sponge."""
+    I = 18
+    t = Transcript(b"t1")
+    sponges = [TD.pack_sponge(t, cuda) for _ in range(2)]
+    claims = [F.encode_fr([77], device=cuda)[0].clone() for _ in range(2)]
+    coeffs = _tables(1, 1, I, cuda)[0].contiguous()
+    outs = [(torch.zeros((30, 4, 8), dtype=torch.int32, device=cuda),
+             torch.zeros((30, 8), dtype=torch.int32, device=cuda)) for _ in range(2)]
+    before = K.counts()["sc_transcript"]
+    for j in range(30):
+        ev = _tables(10 + j, 1, 3 * I, cuda)[0].contiguous()
+        TD.round_transcript(ev, coeffs, claims[0], sponges[0], outs[0][0][j], outs[0][1][j])
+        TD.round_transcript_plain(ev, coeffs, claims[1], sponges[1], outs[1][0][j],
+                                  outs[1][1][j])
+    assert K.counts()["sc_transcript"] == before + 30
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(claims[0], claims[1]) and torch.equal(sponges[0], sponges[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,nP,nS", [(2, 1, 0), (64, 3, 2), (1 << 12, 12, 6)])
+def test_t2_matches_plain(cuda, n, nP, nS):
+    I = nP + nS
+    A, B = _tables(2, I, n, cuda), _tables(3, I, n, cuda)
+    Cp, Cs = _tables(4, 1, n, cuda)[0], _tables(5, nS, n, cuda)
+    coeffs = _tables(6, 1, I, cuda)[0].contiguous()
+    R = n.bit_length() - 1
+    t = Transcript(b"t2")
+    got = []
+    for fn in (SK.prod_tail, SK.prod_tail_plain):
+        sponge = TD.pack_sponge(t, cuda)
+        claim = F.encode_fr([5], device=cuda)[0].clone()
+        polys = torch.zeros((R, 4, 8), dtype=torch.int32, device=cuda)
+        rs = torch.zeros((R, 8), dtype=torch.int32, device=cuda)
+        finals = fn(A, B, Cp, Cs, coeffs, claim, sponge, polys, rs)
+        got.append((finals, polys, rs, claim, sponge))
+    for a, b in zip(*got):
+        assert torch.equal(a, b)

@@ -2,6 +2,10 @@
 """Smoke test of the spartan_tpu_torch port on one CUDA card.
 
     python3 chip_smoke.py            # what a checkout's proof of life runs
+    python3 chip_smoke.py --tail-kernels DIR
+        # only T1's and T2's launch times at the prove's shapes, for the
+        # checkout at DIR (its own sources): another tree's kernels beside
+        # this one's in the same call
 
 Phases, each printing one JSON line (``"phase": ...``):
 
@@ -18,12 +22,15 @@ Phases, each printing one JSON line (``"phase": ...``):
             the tile, however long a run); S2 also at a mid-size round;
             every kernel's registers and stack from its build, and the SASS
             of H1's Montgomery product (``cuobjdump``); T1 (the device
-            transcript's round step) over a chain of 200 rounds and T2 (the
-            fused sumcheck's tail) at ``SMALL_BUCKET_N`` entries, both at the
-            ops trees' leaf layout, bit for bit against their plain versions
-            (every r and the final sponge), and the fused driver on one
+            transcript's round step, one warp) over a chain of 200 rounds
+            at the ops trees' leaf layout and T2 (the fused sumcheck's tail,
+            a thread-block cluster) at the prove's three layouts at 2^12
+            and 2^14 entries and at 2 and 2^5, bit for bit against their
+            plain versions (every r and the final sponge); both timed at
+            every shape the prove gives them, T2 also at every cluster size,
+            each with its launch configuration; and the fused driver on one
             leaf-layout sumcheck of 2^14 entries timed for each T2 entry
-            size (``tail_threshold``);
+            size, 5 times in turns (``tail_threshold``);
 4. kzg_msm  one single-row MSM of 2^16 points at c = 16 (H4's 32-lane
             path at 65,535 buckets) against the host C MSM;
 5. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
@@ -34,8 +41,10 @@ Phases, each printing one JSON line (``"phase": ...``):
             as ``<phase>/msm.<stage>`` accumulators), proof bytes, peak
             device memory,
             every kernel's launch count in the prove (all ten must
-            launch) with its summed device and wrapper host time, H2's
-            launches by entry, call site and size, and a corrupted proof
+            launch; T1 and T2 exactly as many times as the product trees'
+            layers give, ``tail_launches``) with its summed device and
+            wrapper host time, H2's, T1's and T2's launches by entry, call
+            site and size, and a corrupted proof
             rejected; then the same prove on the per-round path
             (``sumcheck_fused.FUSED = False``: no T1 or T2 launch) and on
             the fused path again, whose proofs must equal the first, with
@@ -113,9 +122,20 @@ CROSS_SNARK_LOG2 = 8  # card-vs-CPU SNARK comparison, both PCS modes
 KZG_MSM_N = 1 << 16  # one-row MSM at c = 16 against the host C MSM
 T1_ROUNDS = 200      # T1 held to its plain version over this chain of rounds
 # the fused driver on one leaf-layout sumcheck of TAIL_N entries, timed for
-# each entry size of T2
+# each entry size of T2 (TAIL_N itself: the whole sumcheck in T2), in
+# TAIL_REPEATS rounds of all sizes
 TAIL_N = 1 << 14
-TAIL_THRESHOLDS = (1 << 10, 1 << 11, 1 << 12, 1 << 13)
+TAIL_THRESHOLDS = (1 << 10, 1 << 11, 1 << 12, 1 << 13, 1 << 14)
+TAIL_REPEATS = 5
+# the product trees of the 2^20 SNARK: the ops trees' leaves (2^22, 12
+# circuits, the 6 dot-product halves at the leaf layer) and the mem trees'
+# (2^21, 4 circuits); a layer of 2^k entries is one batched sumcheck
+OPS_TREE_LOG2, MEM_TREE_LOG2 = 22, 21
+# T2 held to its plain version bit for bit: (layout, entries, shared-C
+# instances, own-C instances)
+T2_CHECKS = tuple((label, n, nP, nS) for n in (TAIL_N, 1 << 12) for label, nP, nS in (
+    ("ops leaf", SC_PAR, SC_SEQ), ("ops above the leaf", SC_PAR, 0), ("mem trees", 4, 0))) + \
+    (("ops leaf", 2, SC_PAR, SC_SEQ), ("ops leaf", 1 << 5, SC_PAR, SC_SEQ))
 
 SOURCES = {
     "field_ew": ("spartan_tpu_torch/csrc/field_ew.cu",
@@ -164,23 +184,35 @@ def bound(nbytes: float, nmuls: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "spartan_tpu_torch")):
-        print("chip_smoke: spartan_tpu_torch/ not found beside this script", file=sys.stderr)
+    if argv and (len(argv) != 2 or argv[0] != "--tail-kernels"):
+        print("usage: chip_smoke.py [--tail-kernels DIR]", file=sys.stderr)
         return 2
-    sys.path.insert(0, here)
+    root = os.path.abspath(argv[1]) if argv else here
+    if not os.path.isdir(os.path.join(root, "spartan_tpu_torch")):
+        print(f"chip_smoke: spartan_tpu_torch/ not found in {root}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
     from spartan_tpu_torch.ops import kernels as K
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
+    if argv:
+        # another checkout's T1 and T2 (its own sources and builds), to set
+        # beside this one's in the same call
+        K.build_all(["sc_transcript", "sc_tail"])
+        emit({"phase": "tail_kernels", "tree": root, "nvidia_smi": smi,
+              "ptxas": {n: K.ptxas(n) for n in ("sc_transcript", "sc_tail")},
+              **tail_kernel_times(torch, dev)})
+        return 0
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
 
@@ -690,22 +722,20 @@ def check_sumcheck_kernels(torch, dev, report) -> None:
 
 
 def check_transcript_kernels(torch, dev, report) -> None:
-    """T1 over a chain of T1_ROUNDS rounds on one sponge and T2 at
-    SMALL_BUCKET_N entries, both at the ops trees' leaf layout (12
-    instances on a shared C + 6 with their own), against their plain
-    versions bit for bit: every coefficient and r, the claim, the final
-    200-byte state and positions, T2's final values. Each kernel timed as
-    raw C launches; then the T2 entry size timing (``tail_threshold_ms``)."""
-    from spartan_tpu_torch.core import sumcheck_fused as SF
+    """T1 over a chain of T1_ROUNDS rounds on one sponge at the ops trees'
+    leaf layout (12 instances on a shared C + 6 with their own), and T2 at
+    each of T2_CHECKS, against their plain versions bit for bit: every
+    coefficient and r, the claim, the final 200-byte state and positions,
+    T2's final values. Then both timed as raw C launches at the prove's
+    shapes (``tail_kernel_times``), T2 at every cluster size it takes, and
+    the T2 entry size timing (``tail_threshold_ms``)."""
     from spartan_tpu_torch.ops import field as F
-    from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops import sumcheck_kernels as SK
     from spartan_tpu_torch.ops import transcript_device as TD
     from spartan_tpu_torch.utils.transcript import Transcript
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(25)
-    stream = K.stream(dev)
     nP, nS = SC_PAR, SC_SEQ
     I = nP + nS
     coeffs = rand_canon(torch, F.FR, I, gen)
@@ -733,77 +763,190 @@ def check_transcript_kernels(torch, dev, report) -> None:
         if diff(torch, a, b):
             raise AssertionError(f"sc_transcript: kernel != plain ({name}, {R} rounds)")
     st, pos, pos_begin = TD.unpack_sponge(runs[0][3])
-    lib = K.lib("sc_transcript")
-    sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
-    polys = torch.zeros((4, 8), dtype=torch.int32, device=dev)
-    r = torch.zeros(8, dtype=torch.int32, device=dev)
-    timed = launch_ms(torch, "sc_transcript", lambda: lib.sc_transcript_launch(
-        evals[0].data_ptr(), coeffs.data_ptr(), I, claim.data_ptr(), sponge.data_ptr(),
-        polys.data_ptr(), r.data_ptr(), stream))
+    times = tail_kernel_times(torch, dev)
     # bytes: evals, coefficients, claim and sponge in; coefficients, r,
     # claim and sponge out. Operations: the Montgomery products (the sums
     # sum_i coeff_i e_t,i, the cubic, the serialization, the challenge's
-    # reduction, Horner); the sponge's Keccak work has no multiplies
+    # reduction, the claim's update); the sponge's Keccak work has no multiplies
     bms, by = bound(32 * (4 * I + 1) + 208 + 32 * 6 + 208, MONT * (3 * I + 11))
     report["sc_transcript"].update(
-        max_abs_err=0, match=True, ms=timed["ms"], ms_spread=[timed["min_ms"], timed["max_ms"]],
-        plain_ms=runs[1][4] / R, bound_ms=bms, bound_by=by,
+        max_abs_err=0, match=True, ms=times["t1"]["ms"],
+        ms_spread=[times["t1"]["min_ms"], times["t1"]["max_ms"]],
+        plain_ms=runs[1][4] / R, bound_ms=bms, bound_by=by, launch="1 block x 32 threads",
         shape=f"one round of {nP} shared-C + {nS} own-C instances; chain of {R} rounds "
               f"held to the plain version",
         chain_ms_per_round=runs[0][4] / R, final_sponge={"pos": pos, "pos_begin": pos_begin,
                                                          "sha256": hashlib.sha256(st).hexdigest()},
-        note="one thread, latency-bound: the bound counts multiplies only")
+        note="one warp, latency-bound: the bound counts multiplies only")
     emit({"phase": "kernels", "kernel": "sc_transcript", **report["sc_transcript"]})
 
-    # -- T2: the whole tail at SMALL_BUCKET_N entries
-    n = SF.SMALL_BUCKET_N
-    rounds = n.bit_length() - 1
-    A = [rand_canon(torch, F.FR, n, gen) for _ in range(I)]
-    B = [rand_canon(torch, F.FR, n, gen) for _ in range(I)]
-    Cp = rand_canon(torch, F.FR, n, gen)
-    Cs = [rand_canon(torch, F.FR, n, gen) for _ in range(nS)]
-    runs = []
-    for fn in (SK.prod_tail, SK.prod_tail_plain):
-        sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
-        polys = torch.zeros((rounds, 4, 8), dtype=torch.int32, device=dev)
-        rs = torch.zeros((rounds, 8), dtype=torch.int32, device=dev)
-        finals, ms = cuda_once(torch, lambda: fn(A, B, Cp, Cs, coeffs, claim, sponge, polys, rs))
-        runs.append((finals, rs, polys, claim, sponge, ms))
-    for name, a, b in zip(("final values",) + names, runs[0], runs[1]):
-        if diff(torch, a, b):
-            raise AssertionError(f"sc_tail: kernel != plain ({name}, {n} entries)")
-    M = 2 * I + 1 + nS
-    T = torch.stack(A + B + [Cp] + Cs)
-    sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
-    polys = torch.zeros((rounds, 4, 8), dtype=torch.int32, device=dev)
-    rs = torch.zeros((rounds, 8), dtype=torch.int32, device=dev)
-    finals = torch.zeros((M, 8), dtype=torch.int32, device=dev)
-    lib = K.lib("sc_tail")
-    timed = launch_ms(torch, "sc_tail", lambda: lib.sc_tail_launch(
-        T.data_ptr(), M, n, I, nP, coeffs.data_ptr(), claim.data_ptr(), sponge.data_ptr(),
-        polys.data_ptr(), rs.data_ptr(), finals.data_ptr(), rounds, SK.TAIL_THREADS, stream),
-        launches=20, repeats=5)
-    # the function's work: each table read once, the outputs written once;
-    # per round of half size h, 6 products per instance and position (the
-    # terms at t = 0, 2, 3), one per table and position (the fold), and
-    # the round step's 3I + 11
-    muls = sum(6 * I * (n >> (j + 1)) + M * (n >> (j + 1)) + 3 * I + 11 for j in range(rounds))
-    bms, by = bound(32 * (M * n + I + 1) + 208 + 32 * (5 * rounds + M + 1) + 208, MONT * muls)
+    # -- T2 at every layout and size of T2_CHECKS
+    def table(n):
+        return rand_canon(torch, F.FR, max(n, 3), gen)[:n].contiguous()
+
+    checks = []
+    for label, n, nP2, nS2 in T2_CHECKS:
+        I2 = nP2 + nS2
+        rounds = n.bit_length() - 1
+        A = [table(n) for _ in range(I2)]
+        B = [table(n) for _ in range(I2)]
+        Cp = table(n)
+        Cs = [table(n) for _ in range(nS2)]
+        co = table(I2)
+        runs = []
+        for fn in (SK.prod_tail, SK.prod_tail_plain):
+            sponge, claim = TD.pack_sponge(tr, dev), claim0.clone()
+            polys = torch.zeros((rounds, 4, 8), dtype=torch.int32, device=dev)
+            rs = torch.zeros((rounds, 8), dtype=torch.int32, device=dev)
+            finals, ms = cuda_once(torch, lambda: fn(A, B, Cp, Cs, co, claim, sponge, polys, rs))
+            runs.append((finals, rs, polys, claim, sponge, ms))
+        for name, a, b in zip(("final values",) + names, runs[0], runs[1]):
+            if diff(torch, a, b):
+                raise AssertionError(f"sc_tail: kernel != plain ({name}, {label}, {n} entries)")
+        checks.append({"layout": f"{label} {nP2}+{nS2}", "n": n, "cluster": SK.tail_cluster(n),
+                       "match": True, "plain_ms": runs[1][5]})
+        del A, B, Cp, Cs, runs
+    lead = next(row for row in times["t2"] if row["layout"] == "ops leaf 12+6")
+    n, M = lead["n"], lead["tables"]
     report["sc_tail"].update(
-        max_abs_err=0, match=True, ms=timed["ms"], ms_spread=[timed["min_ms"], timed["max_ms"]],
-        plain_ms=runs[1][5], bound_ms=bms, bound_by=by,
-        shape=f"{rounds} rounds from {n} entries, {nP} shared-C + {nS} own-C instances "
-              f"({M} tables), one block of {SK.TAIL_THREADS} threads",
-        montgomery_products=muls, tail_threshold=tail_threshold_ms(torch, dev, gen),
-        note="one block on one SM, each round waiting on the last one's challenge")
+        max_abs_err=0, match=True, ms=lead["ms"], ms_spread=lead["ms_spread"],
+        plain_ms=checks[0]["plain_ms"], bound_ms=lead["bound_ms"], bound_by=lead["bound_by"],
+        launch=f"1 cluster of {lead['cluster']} blocks x 384 threads (SC_TAIL_THREADS)",
+        shape=f"{n.bit_length() - 1} rounds from {n} entries, {nP} shared-C + {nS} own-C "
+              f"instances ({M} tables)",
+        montgomery_products=lead["montgomery_products"], checked=checks,
+        by_entry_size=times["t2"], cluster_sweep=t2_cluster_sweep(torch, dev),
+        tail_threshold=tail_threshold_ms(torch, dev, gen),
+        note="one cluster; each round waits on the last one's challenge")
     emit({"phase": "kernels", "kernel": "sc_tail", **report["sc_tail"]})
+
+
+def t2_operands(torch, dev, gen, n: int, nP: int, nS: int) -> tuple:
+    """Random stacked tables of a T2 launch and its other arguments:
+    (T [M, n, 8], M, coeffs, claim, sponge, polys, rs, finals)."""
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import transcript_device as TD
+    from spartan_tpu_torch.utils.transcript import Transcript
+
+    I = nP + nS
+    M = 2 * I + 1 + nS
+    rounds = n.bit_length() - 1
+    T = rand_canon(torch, F.FR, M * n, gen).reshape(M, n, 8)
+    coeffs = rand_canon(torch, F.FR, max(I, 3), gen)[:I].contiguous()
+    claim = rand_canon(torch, F.FR, 4, gen)[3].clone()
+    sponge = TD.pack_sponge(Transcript(b"chip_smoke t2"), dev)
+    polys = torch.zeros((max(rounds, 1), 4, 8), dtype=torch.int32, device=dev)
+    rs = torch.zeros((max(rounds, 1), 8), dtype=torch.int32, device=dev)
+    finals = torch.zeros((M, 8), dtype=torch.int32, device=dev)
+    return T, M, coeffs, claim, sponge, polys, rs, finals
+
+
+def t2_raw_ms(torch, dev, gen, n: int, nP: int, nS: int, last_arg: int) -> dict:
+    """T2 timed as raw launches on one set of operands (each launch folds
+    the same buffer again: the same work on other values). ``last_arg`` is
+    the launch function's last int: the cluster size here, the thread count
+    of one block in trees before the cluster."""
+    from spartan_tpu_torch.ops import kernels as K
+
+    T, M, coeffs, claim, sponge, polys, rs, finals = t2_operands(torch, dev, gen, n, nP, nS)
+    lib = K.lib("sc_tail")
+    rounds = n.bit_length() - 1
+    timed = launch_ms(torch, "sc_tail", lambda: lib.sc_tail_launch(
+        T.data_ptr(), M, n, nP + nS, nP, coeffs.data_ptr(), claim.data_ptr(), sponge.data_ptr(),
+        polys.data_ptr(), rs.data_ptr(), finals.data_ptr(), rounds, last_arg, K.stream(dev)),
+        launches=20, repeats=5)
+    return timed
+
+
+def t2_prove_shapes(small: int) -> list:
+    """(layout, shared-C, own-C instances, entry sizes) of the T2 launches
+    of the 2^20 prove with T2 entering at ``small`` entries: every layer
+    sumcheck of 2^k entries enters at min(2^k, small)."""
+    lg = small.bit_length() - 1
+    return [("ops 12+0", SC_PAR, 0, [1 << k for k in range(1, lg + 1)]),
+            ("ops leaf 12+6", SC_PAR, SC_SEQ, [small]),
+            ("mem 4+0", 4, 0, [1 << k for k in range(1, lg + 1)])]
+
+
+def tail_kernel_times(torch, dev) -> dict:
+    """T1's and T2's raw launch times at the 2^20 prove's shapes, for the
+    package this script imported (this checkout's, or another checkout's
+    under ``--tail-kernels DIR``): T1 one leaf-layout round; T2 at every
+    layout and entry size the prove gives it, at its own launch
+    configuration, each beside its bound."""
+    from spartan_tpu_torch.core import sumcheck_fused as SF
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.ops import sumcheck_kernels as SK
+    from spartan_tpu_torch.ops import transcript_device as TD
+    from spartan_tpu_torch.utils.transcript import Transcript
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    I = SC_PAR + SC_SEQ
+    evals = rand_canon(torch, F.FR, 3 * I, gen)
+    coeffs = rand_canon(torch, F.FR, I, gen)
+    claim = rand_canon(torch, F.FR, 4, gen)[3].clone()
+    sponge = TD.pack_sponge(Transcript(b"chip_smoke t1 times"), dev)
+    polys = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    r = torch.zeros(8, dtype=torch.int32, device=dev)
+    lib = K.lib("sc_transcript")
+    t1 = launch_ms(torch, "sc_transcript", lambda: lib.sc_transcript_launch(
+        evals.data_ptr(), coeffs.data_ptr(), I, claim.data_ptr(), sponge.data_ptr(),
+        polys.data_ptr(), r.data_ptr(), K.stream(dev)))
+    cluster = getattr(SK, "tail_cluster", None)
+    rows = []
+    for layout, nP, nS, sizes in t2_prove_shapes(SF.SMALL_BUCKET_N):
+        I = nP + nS
+        M = 2 * I + 1 + nS
+        for n in sizes:
+            last = cluster(n) if cluster else SK.TAIL_THREADS
+            timed = t2_raw_ms(torch, dev, gen, n, nP, nS, last)
+            rounds = n.bit_length() - 1
+            # the function's work: each table read once, the outputs
+            # written once; per round of half size h, 6 products per
+            # instance and position (the terms at t = 0, 2, 3), one per
+            # table and position (the fold), and the round step's 3I + 11
+            muls = sum(6 * I * (n >> (j + 1)) + M * (n >> (j + 1)) + 3 * I + 11
+                       for j in range(rounds))
+            bms, by = bound(32 * (M * n + I + 1) + 208 + 32 * (5 * rounds + M + 1) + 208,
+                            MONT * muls)
+            rows.append({"layout": layout, "n": n, "tables": M,
+                         ("cluster" if cluster else "threads"): last, "ms": timed["ms"],
+                         "ms_spread": [timed["min_ms"], timed["max_ms"]], "bound_ms": bms,
+                         "bound_by": by, "montgomery_products": muls})
+    return {"t1": t1, "t2": rows, "small_bucket_n": SF.SMALL_BUCKET_N}
+
+
+def t2_cluster_sweep(torch, dev) -> list:
+    """T2 at every cluster size it takes, at every entry size from 4 to
+    TAIL_N for the ops layers' 12 + 0 and the mem trees' 4 + 0, and at the
+    leaf layout's TAIL_N: [{layout, n, cluster, ms, chosen}]."""
+    from spartan_tpu_torch.ops import sumcheck_kernels as SK
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    rows = []
+    sizes = [1 << k for k in range(2, TAIL_N.bit_length())]
+    for layout, nP, nS, sizes in (("ops 12+0", SC_PAR, 0, sizes), ("mem 4+0", 4, 0, sizes),
+                                  ("ops leaf 12+6", SC_PAR, SC_SEQ, [TAIL_N])):
+        for n in sizes:
+            nb = 1
+            while nb <= SK.TAIL_MAX_CLUSTER and (nb == 1 or 2 * nb <= n):
+                timed = t2_raw_ms(torch, dev, gen, n, nP, nS, nb)
+                rows.append({"layout": layout, "n": n, "cluster": nb, "ms": timed["ms"],
+                             "chosen": nb == SK.tail_cluster(n)})
+                nb *= 2
+    return rows
 
 
 def tail_threshold_ms(torch, dev, gen) -> dict:
     """The fused driver on one leaf-layout batched sumcheck of TAIL_N
     entries (the rounds above the tail on S1/S2 + T1, then one T2, the one
     transfer and the host replay), for each T2 entry size in
-    TAIL_THRESHOLDS: {size: median ms of 3}."""
+    TAIL_THRESHOLDS, the sizes in turn within each of TAIL_REPEATS
+    repetitions: every time, the median of each size, and how many
+    repetitions each size was the fastest in."""
     from spartan_tpu_torch.core import sumcheck_fused as SF
     from spartan_tpu_torch.ops import field as F
     from spartan_tpu_torch.utils.transcript import Transcript
@@ -811,12 +954,11 @@ def tail_threshold_ms(torch, dev, gen) -> dict:
     nP, nS = SC_PAR, SC_SEQ
     I = nP + nS
     saved = SF.SMALL_BUCKET_N
-    out = {}
+    times = {str(small): [] for small in TAIL_THRESHOLDS}
     try:
-        for small in TAIL_THRESHOLDS:
-            SF.SMALL_BUCKET_N = small
-            times = []
-            for _ in range(3):
+        for _ in range(TAIL_REPEATS):
+            for small in TAIL_THRESHOLDS:
+                SF.SMALL_BUCKET_N = small
                 tabs = [rand_canon(torch, F.FR, TAIL_N, gen) for _ in range(2 * I + 1 + nS)]
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -824,11 +966,15 @@ def tail_threshold_ms(torch, dev, gen) -> dict:
                                              tabs[2 * I + 1:], tabs[2 * I], nP,
                                              list(range(3, 3 + I)), Transcript(b"tail"))
                 torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
-            out[str(small)] = sorted(times)[1]
+                times[str(small)].append((time.perf_counter() - t) * 1e3)
     finally:
         SF.SMALL_BUCKET_N = saved
-    return out
+    median = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    wins = {k: 0 for k in times}
+    for rep in range(TAIL_REPEATS):
+        wins[min(times, key=lambda k: times[k][rep])] += 1
+    return {"ms": times, "median_ms": median, "fastest_in_repetitions": wins,
+            "fastest_median": min(median, key=median.get)}
 
 
 def prod_round_ms(torch, dev, gen, n: int) -> dict:
@@ -1023,10 +1169,17 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
     if any(totals[k]["launches"] != v for k, v in counts.items()):
         raise AssertionError(f"timed launches {totals} != counted launches {counts}")
     h2 = [row for row in launches if row["kernel"] == "curve_ew"]
+    tails = sorted((row for row in launches if row["kernel"] in ("sc_transcript", "sc_tail")),
+                   key=lambda row: (row["kernel"], row["entry"], row["n"]))
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {pcs} SNARK prove: {missing}")
+    from spartan_tpu_torch.core import sumcheck_fused as SF
+
+    want = tail_launches(SF.SMALL_BUCKET_N)
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{pcs}: T1/T2 launches {counts} != {want}")
 
     raw = serialize(proof)
     t = time.perf_counter()
@@ -1056,8 +1209,6 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
 
     # the same prove on the per-round path (the same bytes, no T1 or T2),
     # then on the fused path again: the two paths in turns
-    from spartan_tpu_torch.core import sumcheck_fused as SF
-
     turns = []
     saved = SF.FUSED
     for fused in (False, None):
@@ -1082,6 +1233,8 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
     counts_off = turns[0][2]
     if counts_off["sc_transcript"] or counts_off["sc_tail"]:
         raise AssertionError(f"{pcs}: the per-round prove launched T1/T2: {counts_off}")
+    if any(turns[1][2][k] != v for k, v in want.items()):
+        raise AssertionError(f"{pcs}: second fused prove's T1/T2 launches {turns[1][2]}")
 
     def plp(ph):
         return sum(x["s"] for x in ph if x["label"] == "product_layer_proof")
@@ -1098,6 +1251,7 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
           "gens_peak_device_bytes": gens_peak,
           "encode_peak_device_bytes": encode_peak, "prove_peak_device_bytes": peak,
           "launches": counts, "kernel_totals": totals, "h2_launches": h2,
+          "t1_t2_launches": tails, "t1_t2_expected": want,
           "corrupted_rejected": True,
           "fused_vs_per_round": {
               "order": ["fused", "per-round", "fused"],
@@ -1109,6 +1263,16 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
           "encode_phases": encode_phases, "encode_acc": encode_acc,
           "prove_phases": prove_phases, "prove_acc": acc, "verify_phases": verify_phases})
     return counts, totals, gens
+
+
+def tail_launches(small: int) -> dict:
+    """T1's and T2's launches in one 2^20 prove with T2 entering at
+    ``small`` entries: one T2 for each layer sumcheck of the product trees
+    (2^1 .. 2^(leaves - 1) entries) and one T1 for each of their rounds
+    above ``small``."""
+    lg = small.bit_length() - 1
+    layers = list(range(1, OPS_TREE_LOG2)) + list(range(1, MEM_TREE_LOG2))
+    return {"sc_transcript": sum(max(0, k - lg) for k in layers), "sc_tail": len(layers)}
 
 
 def kzg_pass(torch, dev, srs, report) -> None:
@@ -1315,4 +1479,4 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -51,8 +51,9 @@ def fused_enabled(device) -> bool:
 
 
 # tables of at most this many entries run their remaining rounds in T2
-# (chosen on the H100 with chip_smoke.py's tail_threshold)
-SMALL_BUCKET_N = 1 << 12
+# (chosen on the H100 with chip_smoke.py's tail_threshold, T2 entering at
+# 2^10 .. 2^14 entries on one 2^14-entry sumcheck; PERF.md)
+SMALL_BUCKET_N = 1 << 14
 
 
 def prove_cubic_batched_fused(claim: int, num_rounds: int, TA, TB, TC, Cp, nP: int,

@@ -12,35 +12,40 @@
 //   running claim e, form c_t = sum_i coeff_i e_t,i, the cubic through
 //   (c0, e - c0, c2, c3), absorb it (merlin framing), squeeze
 //   "challenge_nextround", and set e = cubic(r).
-// Bound on the H100: latency. The work is one serial sponge (two to three
-//   Keccak-f[1600] permutations, a chain of dependent Montgomery products),
-//   a few hundred bytes in and out: one thread, a few microseconds.
-// Design: one thread of one block runs transcript.cuh's round_step: the
-//   sponge (the packed int32 [52] tensor) is copied into the thread's
-//   memory, updated, and written back. Every argument is updated in place,
-//   so the wrapper allocates nothing.
+// Bound on the H100: latency. The work is one sponge (two to three
+//   Keccak-f[1600] permutations, each depending on the last) and about 65
+//   Montgomery products, a few hundred bytes in and out.
+// Design: one warp runs transcript.cuh's t1_round: lane k forms the 3
+//   products of instances k, k + 32, ..., three warp sums give c0, c2, c3,
+//   and the step runs across the warp (Keccak one state lane per lane, the
+//   absorbs in parallel from a byte string laid out in shared memory, the
+//   independent products on separate lanes). The sponge lives in shared
+//   memory and registers, never in a thread's local memory. Every argument
+//   is updated in place, so the wrapper allocates nothing.
 #include <cuda_runtime.h>
 
 #include "transcript.cuh"
 
 using namespace sctr;
 
-__global__ void sc_transcript_kernel(const uint32_t* __restrict__ evals,
-                                     const uint32_t* __restrict__ coeffs, int ninst,
-                                     uint32_t* __restrict__ claim, int32_t* __restrict__ sponge,
-                                     uint32_t* __restrict__ poly_out,
-                                     uint32_t* __restrict__ r_out) {
-  round_step(evals, coeffs, ninst, claim, sponge, poly_out, r_out);
+__global__ void __launch_bounds__(32)
+sc_transcript_kernel(const uint32_t* __restrict__ evals, const uint32_t* __restrict__ coeffs,
+                     int ninst, uint32_t* __restrict__ claim, int32_t* __restrict__ sponge,
+                     uint32_t* __restrict__ poly_out, uint32_t* __restrict__ r_out) {
+  __shared__ Sponge sp;
+  __shared__ alignas(16) uint8_t buf[ROUND_BUF];
+  __shared__ Fe out[6];
+  t1_round(Warp{}, evals, coeffs, ninst, claim, sponge, poly_out, r_out, &sp, buf, out);
 }
 
 // evals [3 ninst, 8], coeffs [ninst, 8]; claim [8], sponge int32 [52],
-// poly_out [4, 8] and r_out [8] are written in place.
+// poly_out [4, 8] and r_out [8] are written in place. One warp.
 // Returns cudaGetLastError().
 extern "C" int sc_transcript_launch(const void* evals, const void* coeffs, int ninst,
                                     void* claim, void* sponge, void* poly_out, void* r_out,
                                     void* stream) {
   if (ninst <= 0) return (int)cudaErrorInvalidValue;
-  sc_transcript_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+  sc_transcript_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(evals), static_cast<const uint32_t*>(coeffs), ninst,
       static_cast<uint32_t*>(claim), static_cast<int32_t*>(sponge),
       static_cast<uint32_t*>(poly_out), static_cast<uint32_t*>(r_out));

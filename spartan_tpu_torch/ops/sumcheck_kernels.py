@@ -53,7 +53,8 @@ THREADS = 256        # threads per block of every S kernel
 TOTAL_BLOCKS = 2048  # blocks per launch, shared among its instances
 FOLD_MAX = 64        # tables per S1 launch (SC_FOLD_MAX)
 PROD_MAX = 32        # instances per S2 launch (SC_PROD_MAX)
-TAIL_THREADS = 512   # threads of T2's one block (SC_TAIL_THREADS)
+TAIL_MAX_CLUSTER = 16  # blocks of T2's cluster at most (SC_TAIL_MAX_CLUSTER)
+TAIL_CLUSTER_N = 128   # T2 on tables of at least this many entries runs as a cluster
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +287,16 @@ def prod_step(A, B, C, r, fold_c):
 # T2: the small-table tail of a batched product sumcheck
 # ---------------------------------------------------------------------------
 
+def tail_cluster(n: int) -> int:
+    """Blocks of T2's thread-block cluster for tables of n entries:
+    TAIL_MAX_CLUSTER from TAIL_CLUSTER_N entries up, else one block (no
+    cluster barrier). Chosen on the H100 with chip_smoke.py's sweep of
+    every cluster size at every entry size (PERF.md): more blocks split a
+    round's products further, and below ~2^7 entries the cluster barrier
+    costs more than that saves."""
+    return TAIL_MAX_CLUSTER if n >= TAIL_CLUSTER_N else 1
+
+
 def prod_tail(A, B, Cp, Cs, coeffs, claim, sponge, polys_out, rs_out):
     """Every remaining round of a batched product sumcheck, in one launch
     (kernel T2): the instances' tables A_k, B_k [n, 8] (n = 2^rounds), the
@@ -293,8 +304,9 @@ def prod_tail(A, B, Cp, Cs, coeffs, claim, sponge, polys_out, rs_out):
     rest; ``coeffs`` [I, 8] the layer coefficients. Round j's coefficients
     go to ``polys_out[j]`` [4, 8] and its challenge to ``rs_out[j]``;
     ``claim`` [8] and the packed ``sponge`` advance in place. The inputs are
-    not changed (T2 folds a stacked copy). Returns the final values [2I + 1
-    + len(Cs), 8]: A_k(r), B_k(r), Cp(r), then each own C(r)."""
+    not changed (T2 folds a stacked copy; a cluster of ``tail_cluster(n)``
+    blocks). Returns the final values [2I + 1 + len(Cs), 8]: A_k(r),
+    B_k(r), Cp(r), then each own C(r)."""
     A, B, Cs = list(A), list(B), list(Cs)
     if Cp.device.type == "cpu":
         return prod_tail_plain(A, B, Cp, Cs, coeffs, claim, sponge, polys_out, rs_out)
@@ -310,13 +322,13 @@ def prod_tail(A, B, Cp, Cs, coeffs, claim, sponge, polys_out, rs_out):
                            ("polys_out", polys_out, (rounds, 4, NUM_LIMBS)),
                            ("rs_out", rs_out, (rounds, NUM_LIMBS))):
         TD._check_t(name, t, shape, dev)
-    with K.timed("sc_tail", "tail", len(tabs) * n, dev) as launch:
+    with K.timed("sc_tail", f"tail x{len(tabs)}", n, dev) as launch:
         T = torch.stack(tabs)
         finals = _empty(len(tabs), dev)
         rc = launch(K.lib("sc_tail").sc_tail_launch, T.data_ptr(), len(tabs), n, I, I - nS,
                     coeffs.data_ptr(), claim.data_ptr(), sponge.data_ptr(),
                     polys_out.data_ptr(), rs_out.data_ptr(), finals.data_ptr(), rounds,
-                    TAIL_THREADS, K.stream(dev))
+                    tail_cluster(n), K.stream(dev))
         K.count("sc_tail")
     K.check(rc, "sc_tail")
     return finals
@@ -378,7 +390,8 @@ def quad_step(A, B, r):
     return _launch_single("sc_round_quad", 2, True, (A, B), r)
 
 
-__all__ = ["fold", "prod_evals", "prod_step", "prod_tail", "additive_evals", "additive_step",
+__all__ = ["fold", "prod_evals", "prod_step", "prod_tail", "tail_cluster", "additive_evals",
+           "additive_step",
            "quad_evals", "quad_step", "fold_plain", "prod_evals_plain", "prod_step_plain",
            "prod_tail_plain",
            "additive_evals_plain", "additive_step_plain", "quad_evals_plain",

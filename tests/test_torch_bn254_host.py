@@ -72,29 +72,53 @@ extern "C" void scalar_mul(const uint32_t* k, int nbits, const uint4* x, const u
 
 #include "transcript.cuh"
 
-extern "C" void tr_keccak(uint64_t* lanes) { sctr::keccak_f1600(lanes); }
+// Keccak-f[1600] across the emulated warp's lanes
+extern "C" void tr_keccak(uint64_t* lanes) {
+  sctr::run_warp([&](sctr::Warp w) {
+    uint64_t a = w.lane() < 25 ? lanes[w.lane()] : 0;
+    sctr::keccak_lanes(w, a);
+    w.sync();
+    if (w.lane() < 25) lanes[w.lane()] = a;
+  });
+}
 
-// one STROBE operation on a packed sponge: 0 meta_ad, 1 ad, 2 prf
+// one STROBE operation on a packed sponge, on the warp: 0 meta_ad, 1 ad
+// (framing and data absorbed as one string), 2 prf (framing with the C
+// flag, then the squeeze)
 extern "C" void tr_op(int32_t* sponge, int op, const uint8_t* data, int n, uint8_t* out) {
   sctr::Sponge sp;
   memcpy(&sp, sponge, sizeof(sp));
-  if (op == 2) {
-    sctr::begin_op(sp, sctr::FLAG_I | sctr::FLAG_A | sctr::FLAG_C);
-    sctr::squeeze(sp, out, n);
-  } else {
-    sctr::begin_op(sp, op == 0 ? (sctr::FLAG_M | sctr::FLAG_A) : sctr::FLAG_A);
-    sctr::absorb(sp, data, n);
-  }
+  static uint8_t buf[2 + 256];
+  memcpy(buf + 2, data, op == 2 ? 0 : n);
+  const int off[1] = {0};
+  const uint8_t flags[1] = {(uint8_t)(op == 2 ? sctr::FLAG_I | sctr::FLAG_A | sctr::FLAG_C
+                                      : op == 0 ? sctr::FLAG_M | sctr::FLAG_A : sctr::FLAG_A)};
+  sctr::run_warp([&](sctr::Warp w) {
+    sctr::WSponge s = sctr::ws_load(w, &sp);
+    sctr::warp_absorb(w, s, buf, op == 2 ? 2 : 2 + n, off, flags, 1);
+    if (op == 2) sctr::warp_squeeze(w, s, out, n);
+    w.sync();
+    sctr::ws_store(w, s, &sp);
+  });
   memcpy(sponge, &sp, sizeof(sp));
 }
 
 extern "C" void tr_bytes64(const uint8_t* b, uint32_t* out) {
-  sctr::st(out, 0, sctr::bytes64_to_fr(b));
+  sctr::run_warp([&](sctr::Warp w) {
+    const sctr::Fe r = sctr::challenge_to_fr(w, b);
+    if (w.lane() == 0) sctr::st(out, 0, r);
+  });
 }
 
+// T1's whole body (t1_round, what the kernel runs) on the emulated warp
 extern "C" void tr_round(const uint32_t* evals, const uint32_t* coeffs, int ninst,
                          uint32_t* claim, int32_t* sponge, uint32_t* poly, uint32_t* r) {
-  sctr::round_step(evals, coeffs, ninst, claim, sponge, poly, r);
+  sctr::Sponge sp;
+  alignas(16) uint8_t buf[sctr::ROUND_BUF];
+  sctr::Fe out[6];
+  sctr::run_warp([&](sctr::Warp w) {
+    sctr::t1_round(w, evals, coeffs, ninst, claim, sponge, poly, r, &sp, buf, out);
+  });
 }
 """
 
@@ -235,3 +259,39 @@ def test_transcript_header_round_matches_plain(lib):
         TD.round_transcript_plain(evals, coeffs, claims[1], sponges[1], *outs[1])
         assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
     assert torch.equal(claims[0], claims[1]) and torch.equal(sponges[0], sponges[1])
+
+
+def test_transcript_header_round_every_position(lib):
+    """T1's body on the emulated warp from every position of the sponge
+    modulo the rate (0 .. 165), so F falls at every byte of the round's
+    string, against the host transcript (utils/strobe.py) doing the same
+    round; 1, 18 and 40 instances (lanes with none, one and two)."""
+    from spartan_tpu_torch.core.unipoly import UniPoly
+
+    P = fh.FR_MOD
+    rng = np.random.default_rng(17)
+    for pos in range(166):
+        I = (1, 18, 40)[pos % 3]
+        state = rng.bytes(200)
+        pos_begin = int(rng.integers(0, pos + 1))
+        ev = [int.from_bytes(rng.bytes(32), "little") % P for _ in range(3 * I)]
+        co = [int.from_bytes(rng.bytes(32), "little") % P for _ in range(I)]
+        e = int.from_bytes(rng.bytes(32), "little") % P
+        sponge = torch.from_numpy(np.concatenate((np.frombuffer(state, dtype="<i4"),
+                                                  np.asarray([pos, pos_begin], "<i4"))).copy())
+        claim = F.encode_fr([e], device="cpu")[0].clone()
+        evals, coeffs = F.encode_fr(ev, device="cpu"), F.encode_fr(co, device="cpu")
+        poly, r = torch.zeros((4, 8), dtype=torch.int32), torch.zeros(8, dtype=torch.int32)
+        lib.tr_round(_p(evals), _p(coeffs), I, _p(claim), _p(sponge), _p(poly), _p(r))
+
+        t = Transcript(b"unused")
+        t.strobe.state, t.strobe.pos, t.strobe.pos_begin = bytearray(state), pos, pos_begin
+        c = [sum(ev[3 * i + k] * co[i] for i in range(I)) % P for k in range(3)]
+        up = UniPoly.from_evals([c[0], (e - c[0]) % P, c[1], c[2]])
+        up.append_to_transcript(b"poly", t)
+        r_host = t.challenge_scalar(b"challenge_nextround")
+        assert F.decode_fr(poly) == up.coeffs, pos
+        assert F.decode_fr(r[None])[0] == r_host, pos
+        assert F.decode_fr(claim[None])[0] == up.evaluate(r_host), pos
+        assert TD.unpack_sponge(sponge) == (bytes(t.strobe.state), t.strobe.pos,
+                                            t.strobe.pos_begin), pos

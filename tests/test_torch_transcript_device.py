@@ -164,7 +164,7 @@ def _prove(monkeypatch, fused, n, nP, nS, label=b"fused equiv"):
     (64, 3, 0, None), (32, 2, 2, None), (128, 12, 6, None),
     # the above-tail chain (S2 -> T1 -> S1/S2) at the leaf layout
     (128, 12, 6, 16),
-    # above SMALL_BUCKET_N: rounds above the tail, then one T2
+    # up to SMALL_BUCKET_N (2^14): the whole sumcheck in one T2
     (8192, 1, 0, None), (16384, 1, 1, None),
 ])
 def test_fused_sumcheck_bit_identical(monkeypatch, n, nP, nS, small):
@@ -236,6 +236,20 @@ def test_host_threshold_does_not_change_fused_rounds(monkeypatch):
     assert r1 == r2 and cp1 == cp2
 
 
+def test_tail_cluster_every_size():
+    """T2's cluster size for every table size from 2 to 2^14 entries: one
+    block below TAIL_CLUSTER_N entries, TAIL_MAX_CLUSTER (16) from there, a
+    size the launch takes (a power of two, at most n / 2 blocks unless 1),
+    so T2 spans 16 SMs at SMALL_BUCKET_N and at 2^12 entries."""
+    for k in range(1, 15):
+        n = 1 << k
+        nb = SK.tail_cluster(n)
+        assert nb == (SK.TAIL_MAX_CLUSTER if n >= SK.TAIL_CLUSTER_N else 1), n
+        assert nb & (nb - 1) == 0 and (nb == 1 or 2 * nb <= n), n
+    assert SK.TAIL_MAX_CLUSTER == 16
+    assert SK.tail_cluster(1 << 12) == SK.tail_cluster(SF.SMALL_BUCKET_N) == 16
+
+
 # ---------------------------------------------------------------------------
 # T1 and T2 against their plain versions (skip without a card)
 # ---------------------------------------------------------------------------
@@ -276,8 +290,17 @@ def test_t1_chain_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,nP,nS", [(2, 1, 0), (64, 3, 2), (1 << 12, 12, 6)])
-def test_t2_matches_plain(cuda, n, nP, nS):
+@pytest.mark.parametrize("n,nP,nS,cluster", [
+    (2, 1, 0, None), (64, 3, 2, None), (1 << 12, 12, 6, None),
+    # the prove's other layouts at 2^12: a layer above the leaf, the mem trees
+    (1 << 12, 12, 0, None), (1 << 12, 4, 0, None),
+    # every cluster size at the leaf layout; a cluster that hands over to
+    # one block after its first round; the whole 2^14 sumcheck
+    (1 << 12, 12, 6, 1), (1 << 12, 12, 6, 2), (1 << 12, 12, 6, 4), (1 << 12, 12, 6, 8),
+    (8, 3, 1, 4), (1 << 14, 12, 6, None)])
+def test_t2_matches_plain(cuda, monkeypatch, n, nP, nS, cluster):
+    if cluster is not None:
+        monkeypatch.setattr(SK, "tail_cluster", lambda n: cluster)
     I = nP + nS
     A, B = _tables(2, I, n, cuda), _tables(3, I, n, cuda)
     Cp, Cs = _tables(4, 1, n, cuda)[0], _tables(5, nS, n, cuda)

@@ -58,12 +58,32 @@ Phases, each printing one JSON line (``"phase": ...``):
             proves as in ``snark``; then H3, H4 and the sort timed
             on one bucket pass of its MSMs (2 digit rows of 2^25 points,
             c = 16) beside their bounds;
-8. cross    with the host-path thresholds (and the fused tail's entry size)
+8. sharded  the snark phase's instance (saved to build/smoke_sharded, not
+            built again) proved by a world of 2 ranks that share the one
+            card (``parallel/``; gloo, whose collectives the ranks stage
+            through the host: NCCL refuses two ranks on one card), under
+            Hyrax and under KZG (the SRS file of snark_kzg): encode and
+            prove with ``mesh=``; every rank's commitment and proof must
+            equal the single-device bytes of the snark / snark_kzg phases
+            and verify; every rank's prove must launch every kernel but
+            T1 (the mesh hands each product sumcheck to T2 at
+            SMALL_BUCKET_N entries), T2 once per layer sumcheck, and take
+            every mesh branch (both ZK phases' and the product layers'
+            sharded tables, each 1/D of its full size, so that S2's
+            largest table is 1/D of the single-device prove's; the
+            sharded tree levels, the sharded bound, the row commits and,
+            under KZG, the sharded MSM); each rank's times and encode and
+            prove peak memory beside the single-device ones.
+            Not a multi-GPU speed figure: both ranks run on one card. Then
+            a world of 1 on NCCL (the only NCCL world one card allows):
+            the field psum, the table gather and the MSM window gather on
+            device tensors held to their local results;
+9. cross    with the host-path thresholds (and the fused tail's entry size)
             lowered so the device paths run, the NIZK at 2^10 and the SNARK
             at 2^8 under Hyrax and under KZG made on the card, on the fused
             and on the per-round path, equal the CPU ones, and the card's
             runs launched the kernels, the CPU runs none;
-9. ingest   tests/fixtures/multiplier2 through ``load_circom`` and
+10. ingest  tests/fixtures/multiplier2 through ``load_circom`` and
             ``keyless_bench.run`` on the card and on the CPU under either
             PCS: equal proofs; the C parser's matrices equal the Python
             parser's.
@@ -81,6 +101,7 @@ import hashlib
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -167,9 +188,88 @@ SOURCES = {
                 "spartan_tpu/core/sumcheck_fused.py:199 (_k_fused_cubic_batched, its "
                 "while-loop over the small-table tail; not a Pallas kernel)"),
 }
+# ranks of the sharded phase, all on the one card
+SHARDED_WORLD = 2
+# kernels every rank's sharded SNARK prove must launch: all but T1, since
+# the mesh hands each product sumcheck to the fused path at
+# SMALL_BUCKET_N entries, where one T2 launch takes the remaining rounds
+SHARDED_KERNELS = tuple(k for k in SOURCES if k != "sc_transcript")
 # kernels the NIZK's prove runs (the product-layer kernel S2 is SNARK only)
 NIZK_KERNELS = ("field_ew", "curve_ew", "msm_bucket", "msm_weighted", "sc_fold",
                 "sc_round_additive", "sc_round_quad")
+
+
+class Engaged:
+    """While entered, counts the mesh branches a prove takes, with the
+    full and sharded sizes of the sumcheck tables it shards, and the
+    largest table S2 is launched on, by wrapping their entry points
+    (restored on exit)."""
+
+    def __enter__(self):
+        import importlib
+
+        from spartan_tpu_torch.core import sumcheck as SC
+        from spartan_tpu_torch.ops import sumcheck_kernels as SK
+        from spartan_tpu_torch.parallel import sumcheck_sharded as SS
+
+        # the module (the package's attribute of this name is the function)
+        MS = importlib.import_module("spartan_tpu_torch.parallel.msm_sharded")
+
+        self.n = {k: 0 for k in ("zk_tables", "batched_tables", "tree", "bound",
+                                 "commit_rows", "msm")}
+        self.tables = {"zk_tables": [], "batched_tables": []}  # [full, shard] entries
+        self.s2_max_entries = 0
+        self._saved = []
+
+        def table_init(key, full, shard):
+            def wrap(orig):
+                def init(obj, *a, **k):
+                    n = full(*a)
+                    orig(obj, *a, **k)
+                    self.n[key] += 1
+                    self.tables[key].append([n, shard(obj)])
+                return init
+            return wrap
+
+        def counted(key):
+            def wrap(orig):
+                def fn(*a, **k):
+                    self.n[key] += 1
+                    return orig(*a, **k)
+                return fn
+            return wrap
+
+        def s2(orig):
+            def fn(A, *a, **k):
+                A = list(A)
+                self.s2_max_entries = max(self.s2_max_entries, A[0].shape[0])
+                return orig(A, *a, **k)
+            return fn
+
+        for owner, name, wrap in (
+                (SC._MeshTables, "__init__", table_init(
+                    "zk_tables", lambda mesh, tables, kind: tables[0].len,
+                    lambda t: t.sharded[0].shape[0])),
+                (SC._BatchedMeshTables, "__init__", table_init(
+                    "batched_tables", lambda mesh, TA, TB, TC, Cp, *r: Cp.shape[0],
+                    lambda t: t.Cp.shape[0])),
+                (SS, "make_tree_level", counted("tree")),
+                (SS, "bound_sharded", counted("bound")),
+                (MS, "commit_rows_sharded", counted("commit_rows")),
+                (MS, "msm_sharded", counted("msm")),
+                (SK, "prod_evals", s2), (SK, "prod_step", s2)):
+            orig = owner.__dict__[name]
+            self._saved.append((owner, name, orig))
+            setattr(owner, name, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self._saved:
+            setattr(owner, name, orig)
+
+    def report(self) -> dict:
+        return {"engaged": dict(self.n), "sharded_tables": self.tables,
+                "s2_max_entries": self.s2_max_entries}
 
 
 def emit(obj) -> None:
@@ -234,21 +334,28 @@ def main(argv) -> int:
     run_kzg_msm(torch, dev)
     run_nizk(torch, NIZK_LOG2)
     data = snark_instance(SNARK_LOG2)
-    counts, totals, gens = run_snark(torch, data, SNARK_LOG2, "hyrax")
+    refs = {}
+    counts, totals, gens, refs["hyrax"] = run_snark(torch, data, SNARK_LOG2, "hyrax")
     for name, n in counts.items():
         report[name]["launches"] = n
         report[name]["prove_device_ms"] = totals[name]["device_ms"]
     del gens
-    counts, totals, gens = run_snark(torch, data, SNARK_LOG2, "kzg")
+    counts, totals, gens, refs["kzg"] = run_snark(torch, data, SNARK_LOG2, "kzg")
     for name, n in counts.items():
         report[name]["kzg_prove_launches"] = n
         report[name]["kzg_prove_device_ms"] = totals[name]["device_ms"]
     srs = gens.gens_r1cs_eval.gens.gens_derefs.srs
+    inst_path = save_instance(data)
     del data, gens
     torch.cuda.empty_cache()
     kzg_pass(torch, dev, srs, report)
     del srs
     torch.cuda.empty_cache()
+    sharded = run_sharded(torch, inst_path, refs)
+    for name in SOURCES:
+        report[name]["sharded_launches"] = {pcs: [r[pcs]["launches"][name] for r in sharded]
+                                            for pcs in refs}
+    run_nccl_world1(torch)
     run_cross(torch, CROSS_LOG2, CROSS_SNARK_LOG2)
     run_ingest(torch, here)
 
@@ -1100,7 +1207,9 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
     The launch counts are zeroed just before the prove and read just after.
     Returns every kernel's launch count in the prove, its totals
     ({"launches", "device_ms", "host_ms"}: the wrapper calls' CUDA-event
-    and host times, recorded while Timer collects) and the gens."""
+    and host times, recorded while Timer collects), the gens, and the
+    commitment and proof bytes with the phase times (the sharded phase's
+    reference)."""
     from spartan_tpu_torch.config import SpartanConfig
     from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops.fields_host import FR_MOD
@@ -1150,11 +1259,15 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
     Timer.collect()
     Timer.acc_reset()
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    proof = SNARK.prove(inst, comm, decomm, vars_, inputs, gens, Transcript(b"chip_smoke"),
-                        RandomTape(b"chip_smoke", seed=bytes([5]) * 32))
-    torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t
+    with Engaged() as seen:
+        t = time.perf_counter()
+        proof = SNARK.prove(inst, comm, decomm, vars_, inputs, gens,
+                            Transcript(b"chip_smoke"),
+                            RandomTape(b"chip_smoke", seed=bytes([5]) * 32))
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t
+    if any(seen.n.values()):
+        raise AssertionError(f"the single-device {pcs} prove took a mesh branch: {seen.n}")
     counts = K.counts()
     prove_phases = phases()
     acc = accumulators()
@@ -1262,7 +1375,213 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
               "same_proof": True},
           "encode_phases": encode_phases, "encode_acc": encode_acc,
           "prove_phases": prove_phases, "prove_acc": acc, "verify_phases": verify_phases})
-    return counts, totals, gens
+    ref = {"comm": serialize(comm), "proof": raw, "encode_s": encode_s, "prove_s": prove_s,
+           "verify_s": verify_s, "encode_peak_device_bytes": encode_peak,
+           "prove_peak_device_bytes": peak, "s2_max_entries": seen.s2_max_entries,
+           "srs_path": config.srs_path}
+    return counts, totals, gens, ref
+
+
+# ---------------------------------------------------------------------------
+# sharded proving
+# ---------------------------------------------------------------------------
+
+def save_instance(data) -> str:
+    """Pickle the SNARK phases' instance for the sharded phase's ranks
+    (building it again would take most of a minute a rank)."""
+    from spartan_tpu_torch.utils.cachedir import subdir
+
+    inst, vars_, inputs, nnz, _ = data
+    for m in (inst.inst.A, inst.inst.B, inst.inst.C):
+        m.release_device()
+    path = os.path.join(subdir("smoke_sharded"), "instance.pkl")
+    with open(path + ".part", "wb") as f:
+        pickle.dump((inst, vars_, inputs, nnz), f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".part", path)
+    return path
+
+
+def sharded_rank(mesh, inst_path: str, srs_paths: dict) -> dict:
+    """One rank of the sharded phase: encode, prove and verify the instance
+    at ``inst_path`` with ``mesh=`` under each PCS. The launch counts and
+    the peak memory are zeroed just before each prove and read just after
+    (the encode's peak apart); ``Engaged`` records the mesh branches the
+    encode and the prove take."""
+    import torch
+
+    from spartan_tpu_torch.config import SpartanConfig
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.snark import SNARK, SNARKGens
+    from spartan_tpu_torch.utils.random_tape import RandomTape
+    from spartan_tpu_torch.utils.serialization import serialize
+    from spartan_tpu_torch.utils.transcript import Transcript
+
+    dev = mesh.device
+    t = time.perf_counter()
+    with open(inst_path, "rb") as f:
+        inst, vars_, inputs, nnz = pickle.load(f)
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "load_s": time.perf_counter() - t}
+    n = inst.inst.num_cons
+    for pcs, srs_path in srs_paths.items():
+        t = time.perf_counter()
+        gens = SNARKGens(n, n, 1, nnz, config=SpartanConfig(pcs=pcs, srs_path=srs_path),
+                         device=dev)
+        torch.cuda.synchronize(dev)
+        gens_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats(dev)
+        with Engaged() as seen:
+            t = time.perf_counter()
+            comm, decomm = SNARK.encode(inst, gens, mesh=mesh)
+            torch.cuda.synchronize(dev)
+            encode_s = time.perf_counter() - t
+            encode_peak = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            K.reset_counts()
+            t = time.perf_counter()
+            proof = SNARK.prove(inst, comm, decomm, vars_, inputs, gens,
+                                Transcript(b"chip_smoke"),
+                                RandomTape(b"chip_smoke", seed=bytes([5]) * 32), mesh=mesh)
+            torch.cuda.synchronize(dev)
+            prove_s = time.perf_counter() - t
+            counts = K.counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+        t = time.perf_counter()
+        proof.verify(comm, inputs, Transcript(b"chip_smoke"), gens)
+        out[pcs] = {"comm": serialize(comm), "proof": serialize(proof), "gens_s": gens_s,
+                    "encode_s": encode_s, "prove_s": prove_s,
+                    "verify_s": time.perf_counter() - t, "encode_peak_device_bytes": encode_peak,
+                    "peak_device_bytes": peak, "launches": counts, **seen.report()}
+        del gens, comm, decomm, proof
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_sharded(torch, inst_path: str, refs: dict) -> list:
+    """The sharded phase: SHARDED_WORLD ranks on the card prove the snark
+    phases' instance under both PCS; every rank's bytes must equal the
+    single-device ones of ``refs``, every rank must launch SHARDED_KERNELS
+    (T1 never, T2 once a layer sumcheck) and take every mesh branch
+    (``mesh_engaged``)."""
+    from spartan_tpu_torch.core import sumcheck_fused as SF
+    from spartan_tpu_torch.parallel.launch import spawn
+
+    t = time.perf_counter()
+    ranks = spawn(sharded_rank, SHARDED_WORLD, inst_path,
+                  {pcs: ref["srs_path"] for pcs, ref in refs.items()}, device="cuda")
+    wall_s = time.perf_counter() - t
+    want_t2 = tail_launches(SF.SMALL_BUCKET_N)["sc_tail"]
+    line = {"phase": "sharded", "world": SHARDED_WORLD, "log2": SNARK_LOG2,
+            "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
+            "note": f"{SHARDED_WORLD} ranks share one card (gloo, host-staged collectives): "
+                    "a correctness run of the sharded path, not a multi-GPU speed figure",
+            "spawn_to_join_s": wall_s, "load_s": [r["load_s"] for r in ranks],
+            "expected_kernels": list(SHARDED_KERNELS), "expected_t2": want_t2}
+    failures = []
+    for pcs, ref in refs.items():
+        same = all(r[pcs]["comm"] == ref["comm"] and r[pcs]["proof"] == ref["proof"]
+                   for r in ranks)
+        launched = all(min(r[pcs]["launches"][k] for k in SHARDED_KERNELS) > 0
+                       and r[pcs]["launches"]["sc_transcript"] == 0
+                       and r[pcs]["launches"]["sc_tail"] == want_t2 for r in ranks)
+        engaged = [mesh_engaged(r[pcs], pcs, ref["s2_max_entries"]) for r in ranks]
+        line[pcs] = {
+            "identical": same, "kernels_launched": launched,
+            "mesh_engaged": not any(engaged),
+            "proof_bytes": len(ref["proof"]),
+            "proof_sha256": hashlib.sha256(ref["proof"]).hexdigest(),
+            "sharded_gens_s": [r[pcs]["gens_s"] for r in ranks],
+            "sharded_encode_s": [r[pcs]["encode_s"] for r in ranks],
+            "sharded_prove_s": [r[pcs]["prove_s"] for r in ranks],
+            "sharded_verify_s": [r[pcs]["verify_s"] for r in ranks],
+            "sharded_encode_peak_device_bytes": [r[pcs]["encode_peak_device_bytes"]
+                                                 for r in ranks],
+            "sharded_prove_peak_device_bytes": [r[pcs]["peak_device_bytes"] for r in ranks],
+            "single_device_encode_s": ref["encode_s"], "single_device_prove_s": ref["prove_s"],
+            "single_device_encode_peak_device_bytes": ref["encode_peak_device_bytes"],
+            "single_device_prove_peak_device_bytes": ref["prove_peak_device_bytes"],
+            "single_device_s2_max_entries": ref["s2_max_entries"],
+            "launches": [r[pcs]["launches"] for r in ranks],
+            "engaged": [{k: r[pcs][k] for k in ("engaged", "sharded_tables", "s2_max_entries")}
+                        for r in ranks]}
+        if not same:
+            failures.append(f"{pcs}: a rank's commitment or proof differs from the "
+                            "single-device bytes")
+        if not launched:
+            failures.append(f"{pcs}: launches {line[pcs]['launches']}")
+        failures += [f"{pcs} rank {r}: {msg}" for r, msgs in enumerate(engaged) for msg in msgs]
+    emit(line)
+    if failures:
+        raise AssertionError("sharded: " + "; ".join(failures))
+    return ranks
+
+
+def mesh_engaged(rank: dict, pcs: str, single_s2: int) -> list:
+    """What a rank's sharded encode and prove failed to shard (empty if
+    nothing): both ZK phases' tables, the product layers' tables (each
+    shard 1/D of its table, and S2's largest table 1/D of the
+    single-device prove's), the tree levels, the bound, the row commits
+    and, under KZG, the MSMs."""
+    n, tables = rank["engaged"], rank["sharded_tables"]
+    msgs = []
+    if n["zk_tables"] != 2:
+        msgs.append(f"ZK phases sharded {n['zk_tables']} times, not 2")
+    for key in ("batched_tables", "tree", "bound", "commit_rows") + (
+            ("msm",) if pcs == "kzg" else ()):
+        if n[key] == 0:
+            msgs.append(f"{key} never sharded")
+    for key, sizes in tables.items():
+        bad = [fs for fs in sizes if fs[1] * SHARDED_WORLD != fs[0]]
+        if bad:
+            msgs.append(f"{key}: [full, shard] entries {bad} are not 1/{SHARDED_WORLD}")
+    if rank["s2_max_entries"] * SHARDED_WORLD != single_s2:
+        msgs.append(f"S2's largest table {rank['s2_max_entries']} is not 1/{SHARDED_WORLD} "
+                    f"of the single-device prove's {single_s2}")
+    return msgs
+
+
+def nccl_rank(mesh) -> dict:
+    """A world of 1 on NCCL: psum_field, gather_table and msm_sharded's
+    window gather on device tensors against their local results."""
+    import torch
+
+    from spartan_tpu_torch import device as DEV
+    from spartan_tpu_torch.core import commitments as CM
+    from spartan_tpu_torch.ops import curve as CU
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.ops import msm as M
+    from spartan_tpu_torch.parallel import gather_table, msm_sharded, psum_field
+
+    dev = mesh.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    with DEV.use(dev):
+        x = rand_canon(torch, F.FR, 1 << 12, gen)
+        pts = CM.points_from_scalars(rand_canon(torch, F.FR, 1 << 12, gen), dev)
+        sc = rand_canon(torch, F.FR, 1 << 12, gen)
+        want = CU.decode_points(tuple(a.unsqueeze(0) for a in M.msm(pts, sc)))[0]
+        K.reset_counts()
+        out = {"backend": mesh.backend, "size": mesh.size, "device": str(dev),
+               "psum_equal": bool(torch.equal(psum_field(mesh, x), x)),
+               "gather_equal": bool(torch.equal(gather_table(mesh, x), x)),
+               "msm_equal": CU.decode_points(tuple(a.unsqueeze(0) for a in msm_sharded(
+                   mesh, pts, sc)))[0] == want}
+        out["launches"] = K.counts()
+    return out
+
+
+def run_nccl_world1(torch) -> None:
+    from spartan_tpu_torch.parallel.launch import spawn
+
+    t = time.perf_counter()
+    (r,) = spawn(nccl_rank, 1, device="cuda", backend="nccl")
+    ok = r["psum_equal"] and r["gather_equal"] and r["msm_equal"] and \
+        min(r["launches"][k] for k in ("msm_bucket", "msm_weighted", "curve_ew")) > 0
+    emit({"phase": "nccl_world1", **r, "ok": ok, "s": time.perf_counter() - t,
+          "note": "NCCL takes one rank per card: on one card it runs only as a world of 1"})
+    if not ok:
+        raise AssertionError(f"nccl_world1: {r}")
 
 
 def tail_launches(small: int) -> dict:

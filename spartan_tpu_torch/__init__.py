@@ -5,7 +5,9 @@ package's module layout and produces byte-identical proofs; its field,
 curve, MSM and sumcheck-round kernels are hand-written CUDA (``csrc/``),
 built with ``nvcc`` for ``sm_90a`` on first use. Entry points run on the CUDA card
 unless given ``device="cpu"``, where every kernel wrapper runs its plain
-PyTorch version. Nothing here imports JAX or ``spartan_tpu``.
+PyTorch version; with ``mesh=`` (``parallel/``) a prove is sharded over
+the ranks of a ``torch.distributed`` group. Nothing here imports JAX or
+``spartan_tpu``.
 
 Public API (lazy, so importing the package stays cheap): Assignment,
 Instance, NIZKGens, NIZK, SNARKGens, SNARK, Transcript, RandomTape,

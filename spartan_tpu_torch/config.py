@@ -5,6 +5,8 @@ variables when a ``SpartanConfig`` is made: the polynomial commitment of
 the derefs (``SPARTAN_TPU_PCS``), where the KZG SRS is kept
 (``SPARTAN_TPU_SRS``, by default under the port's ``build/cache/srs``) and
 the seed it is generated from when it is missing (``SPARTAN_TPU_SRS_SEED``).
+The JAX config's ``mesh_devices`` has no counterpart: a sharded prove is
+given its mesh (``parallel.make_mesh``) as ``mesh=``.
 """
 
 from __future__ import annotations

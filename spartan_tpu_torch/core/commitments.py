@@ -240,15 +240,20 @@ def commit_device(values_mont, blind_mont, gens: MultiCommitGens):
     return MSM.msm(gens.extended_points(), vals)
 
 
-def commit_rows(Z_mont, blinds_mont, gens: MultiCommitGens):
+def commit_rows(Z_mont, blinds_mont, gens: MultiCommitGens, mesh=None):
     """Hyrax row commits: Z [L, R] x shared gens (+ per-row blind*h).
 
     Z_mont: [L, R, 8] Montgomery; blinds_mont: [L, 8] Montgomery. Returns
     projective points batched [L]: one batched MSM, chunked over rows so
-    the canonical-scalar and digit transients stay bounded.
+    the canonical-scalar and digit transients stay bounded. With ``mesh``
+    the rows are sharded over the ranks (the same affine points).
     """
     L, R = Z_mont.shape[0], Z_mont.shape[1]
     assert R == gens.n
+    if mesh is not None and mesh.size > 1 and L >= mesh.size:
+        from spartan_tpu_torch.parallel.msm_sharded import commit_rows_sharded
+
+        return commit_rows_sharded(mesh, Z_mont, blinds_mont, gens)
     rows_max = max(1, min(L, ROWS_BUDGET // (R + 1)))
     n_chunks = -(-L // rows_max)
     rows_per = -(-L // n_chunks)

@@ -51,6 +51,21 @@ def k_bound_matrix(Z, L, L_size: int, R_size: int):
     return fr.reduce_sum(fr.mul(L.unsqueeze(1), M), axis=0)
 
 
+def bound_rows(Z, L, L_size: int, R_size: int):
+    """``k_bound_matrix`` in chunks of rows when the [L, R, 8] product
+    transient would exceed ``BOUND_BUDGET`` elements."""
+    if L_size * R_size <= BOUND_BUDGET:
+        return k_bound_matrix(Z, L, L_size, R_size)
+    rows_per = max(1, BOUND_BUDGET // R_size)
+    acc = None
+    for start in range(0, L_size, rows_per):
+        stop = min(start + rows_per, L_size)
+        part = k_bound_matrix(Z[start * R_size: stop * R_size], L[start:stop],
+                              stop - start, R_size)
+        acc = part if acc is None else fr.add(acc, part)
+    return acc
+
+
 def encode_scalar(x: int, device=None):
     """One host int -> [8] Montgomery limbs."""
     return F.encode_fr([x], device=device)[0]
@@ -147,19 +162,16 @@ class DensePolynomial:
         """r_dev [ell, 8] Montgomery -> [8] Montgomery (stays on the device)."""
         return k_dot(self.Z, k_eq_evals(r_dev, self.num_vars))
 
-    def bound(self, L_dev, L_size: int, R_size: int):
+    def bound(self, L_dev, L_size: int, R_size: int, mesh=None):
         """L*Z matrix product, returns [R, 8]; chunked over the L axis when
-        the [L, R, 8] product transient would be large."""
-        if L_size * R_size <= BOUND_BUDGET:
-            return k_bound_matrix(self.Z, L_dev, L_size, R_size)
-        rows_per = max(1, BOUND_BUDGET // R_size)
-        acc = None
-        for start in range(0, L_size, rows_per):
-            stop = min(start + rows_per, L_size)
-            part = k_bound_matrix(self.Z[start * R_size: stop * R_size],
-                                  L_dev[start:stop], stop - start, R_size)
-            acc = part if acc is None else fr.add(acc, part)
-        return acc
+        the [L, R, 8] product transient would be large. With ``mesh`` the
+        rows are sharded over the ranks (the same values)."""
+        if mesh is not None and mesh.size > 1 and L_size % mesh.size == 0 and \
+                L_size >= mesh.size:
+            from spartan_tpu_torch.parallel.sumcheck_sharded import bound_sharded
+
+            return bound_sharded(mesh, self.Z, L_dev, L_size, R_size)
+        return bound_rows(self.Z, L_dev, L_size, R_size)
 
     def item(self, i: int) -> int:
         return decode_scalar(self.Z[i])

@@ -1,14 +1,17 @@
 """Product-tree (GKR-style) circuits + layered batched sumcheck proofs.
 
 Counterpart of ``spartan_tpu/core/product_tree.py`` (reference
-product_tree.rs) on one device. A product circuit keeps every layer's
+product_tree.rs). A product circuit keeps every layer's
 left/right tables as device tensors; each tree layer is one H1 field
 multiply of the layer below's halves. The layered proof joins all
 circuits' claims per layer with random coefficients and runs one batched
 cubic sumcheck per layer (product_tree.rs:251-392), whose rounds are the
 fused S1/S2 kernels; dot-product circuits join only at the leaf layer. A
 layer's tables are handed to its sumcheck and dropped from the circuit,
-so they are freed as they are folded.
+so they are freed as they are folded. With ``mesh`` a large tree is built
+on the ranks' strided shards (each level one H1 multiply a rank, no
+communication), keeps those layers sharded and gathers one only when its
+proof asks for it; the layered sumchecks shard their tables again.
 
 Transcript labels and claim orders match the reference byte for byte.
 """
@@ -19,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
+from spartan_tpu_torch.core import hostpath as HP
 from spartan_tpu_torch.core.mle import DensePolynomial, EqPolynomial
 from spartan_tpu_torch.core.sumcheck import SumcheckInstanceProof
 from spartan_tpu_torch.ops import field as F
@@ -47,21 +51,61 @@ def batch_dotp_evals(circuits: list["DotProductCircuit"]) -> list[int]:
 
 
 class ProductCircuit:
-    """Binary product tree by left/right layer tables (product_tree.rs:15-65)."""
+    """Binary product tree by left/right layer tables (product_tree.rs:15-65).
 
-    def __init__(self, poly: DensePolynomial):
+    With ``mesh``, a tree of more than ``HOST_N`` leaves is built on the
+    ranks' strided shards while a level stays above ``HOST_N`` entries and
+    divisible by twice the rank count (the JAX package's condition, with
+    ``HOST_N`` for its checkpoint size); such layers are kept as shards."""
+
+    def __init__(self, poly: DensePolynomial, mesh=None):
         cur = poly.Z
-        self.num_layers = log_2(cur.shape[0])
+        n = cur.shape[0]
+        self.num_layers = log_2(n)
         self._layers: dict[int, tuple] = {}
-        for i in range(self.num_layers):
+        self._mesh = None
+        if mesh is not None and mesh.size > 1 and n > HP.HOST_N and \
+                n % (2 * mesh.size) == 0:
+            from spartan_tpu_torch.parallel.mesh import shard_strided
+            from spartan_tpu_torch.parallel.sumcheck_sharded import make_tree_level
+
+            self._mesh = mesh
+            cur = shard_strided(mesh, cur)
+            m = n
+            i = 0
+            while m > HP.HOST_N and m % (2 * mesh.size) == 0:
+                # a sharded layer: its shard, whose halves are the strided
+                # shards of the layer's left and right tables
+                self._layers[i] = cur
+                cur = make_tree_level(mesh, cur)
+                m //= 2
+                i += 1
+            if i < self.num_layers:
+                from spartan_tpu_torch.parallel.mesh import gather_unstride
+
+                self._build(gather_unstride(mesh, cur), i)
+        else:
+            self._build(cur, 0)
+
+    def _build(self, cur, first: int) -> None:
+        for i in range(first, self.num_layers):
             half = cur.shape[0] // 2
             self._layers[i] = (cur[:half], cur[half:2 * half])
             if i + 1 < self.num_layers:
                 cur = fr.mul(cur[:half], cur[half:2 * half])
 
     def layer(self, i: int) -> tuple[DensePolynomial, DensePolynomial]:
-        """(left, right) tables of layer ``i`` (0 = leaves)."""
-        l, r = self._layers[i]
+        """(left, right) tables of layer ``i`` (0 = leaves), gathered if the
+        layer is held sharded."""
+        t = self._layers[i]
+        if isinstance(t, tuple):
+            l, r = t
+        else:
+            from spartan_tpu_torch.parallel.mesh import gather_unstride
+
+            full = gather_unstride(self._mesh, t)
+            half = full.shape[0] // 2
+            l, r = full[:half], full[half:]
         return DensePolynomial(l), DensePolynomial(r)
 
     def release(self, i: int) -> None:
@@ -181,9 +225,10 @@ class ProductCircuitEvalProofBatched:
 
     @staticmethod
     def prove(prod_circuit_vec: list[ProductCircuit],
-              dotp_circuit_vec: list[DotProductCircuit], transcript):
+              dotp_circuit_vec: list[DotProductCircuit], transcript, mesh=None):
         """Returns (proof, rand) (product_tree.rs:251-392). Consumes the
-        circuits' layers and the dotp tables."""
+        circuits' layers and the dotp tables. ``mesh`` shards each layer's
+        batched sumcheck."""
         assert prod_circuit_vec
         claims_dotp_final = ([], [], [])
         proof_layers: list[LayerProofBatched] = []
@@ -226,7 +271,7 @@ class ProductCircuitEvalProofBatched:
                     claim, num_rounds_prod,
                     (poly_A_par, poly_B_par, poly_C_par),
                     (poly_A_seq, poly_B_seq, poly_C_seq),
-                    coeff_vec, transcript)
+                    coeff_vec, transcript, mesh=mesh)
             claims_prod_left, claims_prod_right, _claims_eq = claims_prod
 
             for i in range(len(prod_circuit_vec)):

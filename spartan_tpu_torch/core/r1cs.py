@@ -113,11 +113,11 @@ class R1CSShape:
             self.C.compute_eval_table_sparse_device(evals_mont, num_cols),
         )
 
-    def commit(self, gens: "R1CSCommitmentGens"):
+    def commit(self, gens: "R1CSCommitmentGens", mesh=None):
         """SNARK-mode preprocessing commitment (r1cs.rs:375-400)."""
         from spartan_tpu_torch.core import sparse_mlpoly_full as full
 
-        comm, dense = full.multi_commit([self.A, self.B, self.C], gens.gens)
+        comm, dense = full.multi_commit([self.A, self.B, self.C], gens.gens, mesh=mesh)
         return (R1CSCommitment(self.num_cons, self.num_vars, self.num_inputs, comm),
                 R1CSDecommitment(dense))
 
@@ -192,11 +192,11 @@ class R1CSEvalProof:
     @staticmethod
     def prove(decomm: R1CSDecommitment, rx: list[int], ry: list[int],
               evals: tuple[int, int, int], gens: R1CSCommitmentGens,
-              transcript, random_tape) -> "R1CSEvalProof":
+              transcript, random_tape, mesh=None) -> "R1CSEvalProof":
         from spartan_tpu_torch.core.sparse_mlpoly_full import SparseMatPolyEvalProof
 
         return R1CSEvalProof(SparseMatPolyEvalProof.prove(
-            decomm.dense, rx, ry, list(evals), gens.gens, transcript, random_tape))
+            decomm.dense, rx, ry, list(evals), gens.gens, transcript, random_tape, mesh=mesh))
 
     def verify(self, comm: R1CSCommitment, rx: list[int], ry: list[int],
                evals: tuple[int, int, int], gens: R1CSCommitmentGens, transcript) -> None:

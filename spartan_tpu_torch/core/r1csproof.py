@@ -78,9 +78,10 @@ class R1CSProof:
 
     @staticmethod
     def prove(inst: R1CSShape, vars_: list[int], input_: list[int],
-              gens: R1CSGens, transcript, random_tape):
+              gens: R1CSGens, transcript, random_tape, mesh=None):
         """Returns (proof, rx, ry) (r1csproof.rs:241-459). Device tensors
-        follow the generators' device."""
+        follow the generators' device. ``mesh`` shards the witness commit,
+        both sumcheck phases' tables and the witness opening."""
         from spartan_tpu_torch.utils.timer import Timer
 
         timer_prove = Timer("R1CSProof::prove")
@@ -91,7 +92,7 @@ class R1CSProof:
         dev = gens.device
         timer_commit = Timer("polycommit")
         poly_vars = DensePolynomial.from_ints(vars_, device=dev)
-        comm_vars, blinds_vars = commit_poly(poly_vars, gens.gens_pc, random_tape)
+        comm_vars, blinds_vars = commit_poly(poly_vars, gens.gens_pc, random_tape, mesh=mesh)
         comm_vars.append_to_transcript(b"poly_commitment", transcript)
         timer_commit.stop()
 
@@ -114,7 +115,7 @@ class R1CSProof:
                 ZKSumcheckInstanceProof.prove_cubic_with_additive_term(
                     0, 0, num_rounds_x, poly_tau, poly_Az, poly_Bz, poly_Cz,
                     gens.gens_sc.gens_1, gens.gens_sc.gens_4, transcript,
-                    random_tape,
+                    random_tape, mesh=mesh,
                 )
         tau_claim, Az_claim, Bz_claim, Cz_claim = claims_phase1
         timer_sc1.stop()
@@ -171,6 +172,7 @@ class R1CSProof:
                 claim_phase2, blind_claim_phase2, num_rounds_y,
                 poly_z, poly_ABC,
                 gens.gens_sc.gens_1, gens.gens_sc.gens_3, transcript, random_tape,
+                mesh=mesh,
             )
         timer_sc2.stop()
 
@@ -180,7 +182,7 @@ class R1CSProof:
         blind_eval = random_tape.random_scalar(b"blind_eval")
         proof_eval_vars_at_ry, comm_vars_at_ry = PolyEvalProof.prove(
             poly_vars, blinds_vars, ry[1:], eval_vars_at_ry, blind_eval,
-            gens.gens_pc, transcript, random_tape,
+            gens.gens_pc, transcript, random_tape, mesh=mesh,
         )
         timer_polyeval.stop()
 

@@ -227,19 +227,19 @@ class SparseMatPolyCommitment:
         self.comm_comb_mem.append_to_transcript(b"comm_comb_mem", transcript)
 
 
-def multi_commit(sparse_polys, gens: SparseMatPolyCommitmentGens):
+def multi_commit(sparse_polys, gens: SparseMatPolyCommitmentGens, mesh=None):
     """(commitment, dense rep): the SNARK's encode (sparse_mlpoly_full.rs:176-197)."""
     timer_dense = Timer("multi_sparse_to_dense_rep")
     dense = multi_sparse_to_dense_rep(sparse_polys)
     timer_dense.stop()
     comb_ops = dense.comb_ops()
     timer_ops = Timer(f"commit_comb_ops[{comb_ops.len}]")
-    comm_comb_ops, _ = commit_poly(comb_ops, gens.gens_ops)
+    comm_comb_ops, _ = commit_poly(comb_ops, gens.gens_ops, mesh=mesh)
     timer_ops.stop()
     del comb_ops
     comb_mem = dense.comb_mem()
     timer_mem = Timer(f"commit_comb_mem[{comb_mem.len}]")
-    comm_comb_mem, _ = commit_poly(comb_mem, gens.gens_mem)
+    comm_comb_mem, _ = commit_poly(comb_mem, gens.gens_mem, mesh=mesh)
     timer_mem.stop()
     return (
         SparseMatPolyCommitment(
@@ -266,12 +266,12 @@ class Derefs:
     def comb(self) -> DensePolynomial:
         return DensePolynomial.merge(self.row_ops_val + self.col_ops_val)
 
-    def commit(self, gens) -> "DerefsCommitment":
+    def commit(self, gens, mesh=None) -> "DerefsCommitment":
         """Hyrax row commits, or one KZG commitment of the whole table."""
         if isinstance(gens, PolyCommitmentGens):
-            comm, _ = commit_poly(self.comb(), gens)
+            comm, _ = commit_poly(self.comb(), gens, mesh=mesh)
             return DerefsCommitment(comm)
-        return DerefsCommitment(gens.commit(self.comb()))
+        return DerefsCommitment(gens.commit(self.comb(), mesh=mesh))
 
 
 def _derefs_spec(hyrax, kzg: str):
@@ -335,14 +335,15 @@ class DerefsEvalProof:
 
     @staticmethod
     def prove(derefs: Derefs, eval_row_ops_val: list[int], eval_col_ops_val: list[int],
-              r: list[int], gens, transcript, random_tape) -> "DerefsEvalProof":
+              r: list[int], gens, transcript, random_tape, mesh=None) -> "DerefsEvalProof":
         r_joint, joint_claim_eval = DerefsEvalProof._joint_claim(
             list(eval_row_ops_val) + list(eval_col_ops_val), r, gens, transcript)
         if isinstance(gens, PolyCommitmentGens):
             proof, _ = PolyEvalProof.prove(derefs.comb(), None, r_joint, joint_claim_eval,
-                                           None, gens, transcript, random_tape)
+                                           None, gens, transcript, random_tape, mesh=mesh)
         else:
-            proof = gens.prove_eval(derefs.comb(), r_joint, joint_claim_eval, transcript)
+            proof = gens.prove_eval(derefs.comb(), r_joint, joint_claim_eval, transcript,
+                                    mesh=mesh)
         return DerefsEvalProof(proof)
 
     def verify(self, r: list[int], eval_row_ops_val: list[int], eval_col_ops_val: list[int],
@@ -373,7 +374,8 @@ class Layers:
     """Hash layer + product circuits (sparse_mlpoly_full.rs:744-841)."""
 
     def __init__(self, eval_table_dev, at: AddrTimestamps,
-                 poly_ops_val: list[DensePolynomial], r_mem_check: tuple[int, int]):
+                 poly_ops_val: list[DensePolynomial], r_mem_check: tuple[int, int],
+                 mesh=None):
         r_hash, r_multiset_check = r_mem_check
         dev = eval_table_dev.device
         rh, rh2, gam = F.encode_fr([r_hash, r_hash * r_hash % FR_MOD, r_multiset_check],
@@ -382,7 +384,7 @@ class Layers:
         ident = F.encode_small_uints(np.arange(num_mem_cells, dtype=np.int64), device=dev)
 
         def circuit(leaves):
-            return ProductCircuit(DensePolynomial(leaves))
+            return ProductCircuit(DensePolynomial(leaves), mesh=mesh)
 
         init = circuit(k_hash_layer(ident, eval_table_dev, fr.zeros((num_mem_cells,), dev),
                                     rh, rh2, gam))
@@ -397,9 +399,11 @@ class Layers:
 
 class PolyEvalNetwork:
     def __init__(self, dense: MultiSparseMatPolynomialAsDense, derefs: Derefs,
-                 mem_rx_dev, mem_ry_dev, r_mem_check: tuple[int, int]):
-        self.row_layers = Layers(mem_rx_dev, dense.row, derefs.row_ops_val, r_mem_check)
-        self.col_layers = Layers(mem_ry_dev, dense.col, derefs.col_ops_val, r_mem_check)
+                 mem_rx_dev, mem_ry_dev, r_mem_check: tuple[int, int], mesh=None):
+        self.row_layers = Layers(mem_rx_dev, dense.row, derefs.row_ops_val, r_mem_check,
+                                 mesh=mesh)
+        self.col_layers = Layers(mem_ry_dev, dense.col, derefs.col_ops_val, r_mem_check,
+                                 mesh=mesh)
 
 
 def _joint_opening_claim(evals: list[int], rand: list[int], transcript, label: bytes,
@@ -435,7 +439,8 @@ class HashLayerProof:
 
     @staticmethod
     def prove(rand: tuple[list[int], list[int]], dense: MultiSparseMatPolynomialAsDense,
-              derefs: Derefs, gens: SparseMatPolyCommitmentGens, transcript, random_tape):
+              derefs: Derefs, gens: SparseMatPolyCommitmentGens, transcript, random_tape,
+              mesh=None):
         transcript.append_protocol_name(HashLayerProof.PROTOCOL)
         rand_mem, rand_ops = rand
 
@@ -445,7 +450,7 @@ class HashLayerProof:
         with Timer("derefs_eval_proof"):
             proof_derefs = DerefsEvalProof.prove(
                 derefs, eval_row_ops_val, eval_col_ops_val, rand_ops,
-                gens.gens_derefs, transcript, random_tape)
+                gens.gens_derefs, transcript, random_tape, mesh=mesh)
 
         # all ops-sized openings share one eq table
         with Timer("ops_addr_ts_evals"):
@@ -466,7 +471,7 @@ class HashLayerProof:
         with Timer("comb_ops_open"):
             proof_ops, _ = PolyEvalProof.prove(
                 dense.comb_ops(), None, r_joint_ops, joint_claim_eval_ops, None,
-                gens.gens_ops, transcript, random_tape)
+                gens.gens_ops, transcript, random_tape, mesh=mesh)
 
         r_joint_mem, joint_claim_eval_mem = _joint_opening_claim(
             [eval_row_audit_ts, eval_col_audit_ts], rand_mem, transcript, b"claim_evals_mem",
@@ -474,7 +479,7 @@ class HashLayerProof:
         with Timer("comb_mem_open"):
             proof_mem, _ = PolyEvalProof.prove(
                 dense.comb_mem(), None, r_joint_mem, joint_claim_eval_mem, None,
-                gens.gens_mem, transcript, random_tape)
+                gens.gens_mem, transcript, random_tape, mesh=mesh)
 
         return HashLayerProof(
             eval_row=(eval_row_addr, eval_row_read_ts, eval_row_audit_ts),
@@ -618,7 +623,7 @@ class ProductLayerProof:
     @staticmethod
     def prove(row_prod_layer: ProductLayer, col_prod_layer: ProductLayer,
               dense: MultiSparseMatPolynomialAsDense, derefs: Derefs,
-              eval: list[int], transcript):
+              eval: list[int], transcript, mesh=None):
         transcript.append_protocol_name(ProductLayerProof.PROTOCOL)
 
         claims = {}
@@ -652,13 +657,13 @@ class ProductLayerProof:
                         list(col_prod_layer.read_vec) + list(col_prod_layer.write_vec))
         with Timer("ops_product_trees"):
             proof_ops, rand_ops = ProductCircuitEvalProofBatched.prove(
-                ops_circuits, dotp_circuits, transcript)
+                ops_circuits, dotp_circuits, transcript, mesh=mesh)
 
         mem_circuits = [row_prod_layer.init, row_prod_layer.audit,
                         col_prod_layer.init, col_prod_layer.audit]
         with Timer("mem_product_trees"):
             proof_mem, rand_mem = ProductCircuitEvalProofBatched.prove(
-                mem_circuits, [], transcript)
+                mem_circuits, [], transcript, mesh=mesh)
 
         return (
             ProductLayerProof(
@@ -720,15 +725,15 @@ class PolyEvalNetworkProof:
     @staticmethod
     def prove(network: PolyEvalNetwork, dense: MultiSparseMatPolynomialAsDense,
               derefs: Derefs, evals: list[int], gens: SparseMatPolyCommitmentGens,
-              transcript, random_tape) -> "PolyEvalNetworkProof":
+              transcript, random_tape, mesh=None) -> "PolyEvalNetworkProof":
         transcript.append_protocol_name(PolyEvalNetworkProof.PROTOCOL)
         with Timer("product_layer_proof"):
             proof_prod_layer, rand_mem, rand_ops = ProductLayerProof.prove(
                 network.row_layers.prod_layer, network.col_layers.prod_layer,
-                dense, derefs, evals, transcript)
+                dense, derefs, evals, transcript, mesh=mesh)
         with Timer("hash_layer_proof"):
             proof_hash_layer = HashLayerProof.prove(
-                (rand_mem, rand_ops), dense, derefs, gens, transcript, random_tape)
+                (rand_mem, rand_ops), dense, derefs, gens, transcript, random_tape, mesh=mesh)
         return PolyEvalNetworkProof(proof_prod_layer, proof_hash_layer)
 
     def verify(self, comm: SparseMatPolyCommitment, comm_derefs: DerefsCommitment,
@@ -776,7 +781,7 @@ class SparseMatPolyEvalProof:
     @staticmethod
     def prove(dense: MultiSparseMatPolynomialAsDense, rx: list[int], ry: list[int],
               evals: list[int], gens: SparseMatPolyCommitmentGens,
-              transcript, random_tape) -> "SparseMatPolyEvalProof":
+              transcript, random_tape, mesh=None) -> "SparseMatPolyEvalProof":
         transcript.append_protocol_name(SparseMatPolyEvalProof.PROTOCOL)
         assert len(evals) == dense.batch_size
         dev = dense.row.device
@@ -790,16 +795,16 @@ class SparseMatPolyEvalProof:
             derefs = dense.deref(mem_rx, mem_ry)
 
         with Timer("derefs_commitment"):
-            comm_derefs = derefs.commit(gens.gens_derefs)
+            comm_derefs = derefs.commit(gens.gens_derefs, mesh=mesh)
             comm_derefs.append_to_transcript(b"comm_poly_row_col_ops_val", transcript)
 
         r_mem_check = transcript.challenge_vector(b"challenge_r_hash", 2)
         with Timer("network_construction"):
             net = PolyEvalNetwork(dense, derefs, mem_rx, mem_ry,
-                                  (r_mem_check[0], r_mem_check[1]))
+                                  (r_mem_check[0], r_mem_check[1]), mesh=mesh)
         with Timer("network_proof"):
             network_proof = PolyEvalNetworkProof.prove(
-                net, dense, derefs, evals, gens, transcript, random_tape)
+                net, dense, derefs, evals, gens, transcript, random_tape, mesh=mesh)
         return SparseMatPolyEvalProof(comm_derefs, network_proof)
 
     def verify(self, comm: SparseMatPolyCommitment, rx: list[int], ry: list[int],

@@ -1,7 +1,7 @@
 """Sumcheck engines: the batched product sumcheck and the ZK ones.
 
-Counterpart of ``spartan_tpu/core/sumcheck.py`` (reference sumcheck.rs)
-on one device. Per round, the round polynomial's evaluations at {0, 2, 3}
+Counterpart of ``spartan_tpu/core/sumcheck.py`` (reference sumcheck.rs).
+Per round, the round polynomial's evaluations at {0, 2, 3}
 (the "eval at {0,2,3} trick", sumcheck.rs:89-161) and the folds that bind
 the top variable, lo + r * (hi - lo), are the fused round kernels of
 ``ops/sumcheck_kernels.py``: a round folds every table by the previous
@@ -19,8 +19,17 @@ host transcript round by round: the host reads each round's evaluations
 and the variants' tiny per-round algebra, the ZK ones also committing each
 round polynomial and proving the two claims with a batched
 DotProductProof; there, tables of at most ``hostpath.HOST_N`` entries
-finish their rounds on the host in Python ints. The JAX package's mesh
-branches are not ported.
+finish their rounds on the host in Python ints.
+
+With ``mesh`` (``parallel/``), large tables are strided-sharded over the
+ranks (``_MeshTables``, ``_BatchedMeshTables``): each round's evaluations
+are the ranks' partials on the same kernels joined by one exact psum, and
+the host transcript is driven round by round on every rank. The tables are
+gathered once they shrink to ``HOST_N`` entries (or below twice the rank
+count), as in the JAX package; a batched product sumcheck on a card leaves
+the mesh already at ``sumcheck_fused.SMALL_BUCKET_N`` entries, where the
+fused path's T2 takes every remaining round in one launch. The proof
+bytes are the single-device ones either way.
 """
 
 from __future__ import annotations
@@ -80,7 +89,7 @@ class SumcheckInstanceProof:
 
     @staticmethod
     def prove_cubic_batched(claim: int, num_rounds: int, poly_vec_par, poly_vec_seq,
-                            coeffs: list[int], transcript):
+                            coeffs: list[int], transcript, mesh=None):
         """Batched product sumcheck (sumcheck.rs:165-330).
 
         poly_vec_par: (A_list, B_list, C_shared) DensePolynomials; the
@@ -91,8 +100,11 @@ class SumcheckInstanceProof:
         order the transcript batches them (sumcheck.rs:229-241). On a card
         (unless ``SF.FUSED`` says otherwise) every round runs in the fused
         driver, chosen before the host-int switch at ``HOST_N`` as in the
-        JAX package (``sumcheck.py:640-657``). Every input table is
-        consumed (its ``Z`` is dropped once folded).
+        JAX package (``sumcheck.py:640-657``). With ``mesh`` the rounds
+        above the mesh's exit size run sharded first (the JAX package
+        checks the mesh before the fused tail too); the gathered tables
+        then go on as above. Every input table is consumed (its ``Z`` is
+        dropped once folded).
         Returns (proof, r, (A_par(r), B_par(r), C(r)), (A_seq(r),
         B_seq(r), C_seq(r))).
         """
@@ -110,19 +122,31 @@ class SumcheckInstanceProof:
         for p in (*A_par, *B_par, C_par, *A_seq, *B_seq, *C_seq):
             p.Z = None
 
-        if num_rounds and SF.fused_enabled(dev):
-            polys, r, claims_prod, claims_dotp = SF.prove_cubic_batched_fused(
-                claim, num_rounds, TA, TB, TC, Cp, nP, coeffs, transcript)
-            return SumcheckInstanceProof(polys), r, claims_prod, claims_dotp
+        fused = num_rounds > 0 and SF.fused_enabled(dev)
+        # on the fused path the mesh hands over where T2 takes the tail
+        leave = max(HP.HOST_N, SF.SMALL_BUCKET_N) if fused else HP.HOST_N
+        mesh_t = None
+        n0 = Cp.shape[0]
+        if mesh is not None and mesh.size > 1 and n0 > leave and \
+                n0 >= 2 * mesh.size and n0 % (2 * mesh.size) == 0:
+            mesh_t = _BatchedMeshTables(mesh, TA, TB, TC, Cp, nP, leave)
+            TA = TB = TC = Cp = None
 
         e = claim % FR_MOD
         r: list[int] = []
         polys: list[CompressedUniPoly] = []
         host = None      # (HA, HB, HCp, HCs) host-int tables for the tail
         pending = None   # device evals [3I, 8] of the current round
-        cur_n = Cp.shape[0]
-        for _ in range(num_rounds):
-            if host is None and cur_n <= HP.HOST_N:
+        cur_n = n0
+        for j in range(num_rounds):
+            if mesh_t is None and fused:
+                # every remaining round (all of them without a mesh)
+                polys_f, r_f, claims_prod, claims_dotp = SF.prove_cubic_batched_fused(
+                    e, num_rounds - j, TA, TB, TC, Cp, nP, coeffs, transcript)
+                polys += polys_f
+                r += r_f
+                return SumcheckInstanceProof(polys), r, claims_prod, claims_dotp
+            if mesh_t is None and host is None and cur_n <= HP.HOST_N:
                 dec = mle.decode_tables(TA + TB + [Cp] + TC)
                 host = (dec[:I], dec[I:2 * I], dec[2 * I], dec[2 * I + 1:])
                 TA = TB = TC = Cp = None
@@ -133,7 +157,8 @@ class SumcheckInstanceProof:
                 ev0, ev2, ev3 = ([t[i] for t in ev] for i in range(3))
             else:
                 if pending is None:
-                    pending = SK.prod_evals(TA, TB, [Cp] * nP + TC)
+                    pending = mesh_t.evals() if mesh_t is not None else \
+                        SK.prod_evals(TA, TB, [Cp] * nP + TC)
                 vals = F.decode_fr(pending)
                 ev0, ev2, ev3 = vals[0::3], vals[1::3], vals[2::3]
             c0 = sum(ev0[i] * coeffs[i] for i in range(I)) % FR_MOD
@@ -143,7 +168,15 @@ class SumcheckInstanceProof:
             poly.append_to_transcript(b"poly", transcript)
             r_j = transcript.challenge_scalar(b"challenge_nextround")
             r.append(r_j)
-            if host is not None:
+            if mesh_t is not None:
+                r_dev = mle.encode_scalar(r_j, dev)
+                if mesh_t.can_step():
+                    pending = mesh_t.step(r_dev)
+                else:
+                    TA, TB, TC, Cp = mesh_t.fold_gather(r_dev)
+                    mesh_t = None
+                    pending = None
+            elif host is not None:
                 HA, HB, HCp, HCs = host
                 host = ([HP.fold_top(t, r_j) for t in HA], [HP.fold_top(t, r_j) for t in HB],
                         HP.fold_top(HCp, r_j), [HP.fold_top(t, r_j) for t in HCs])
@@ -172,6 +205,117 @@ class SumcheckInstanceProof:
         claims_prod = (finals_A[:nP], finals_B[:nP], finals[2 * I])
         claims_dotp = (finals_A[nP:], finals_B[nP:], finals[2 * I + 1:])
         return SumcheckInstanceProof(polys), r, claims_prod, claims_dotp
+
+
+# ---------------------------------------------------------------------------
+# sharded tables (sequence-parallel sumcheck over a mesh)
+# ---------------------------------------------------------------------------
+
+class _MeshTables:
+    """The ZK sumchecks' tables, strided-sharded over the ranks.
+
+    The strided layout keeps the top-variable folds on each rank; once a
+    table folds to ``HOST_N`` entries or below twice the rank count, the
+    tables are gathered back into the polynomials and the rounds go on
+    unsharded. Each table's full copy is dropped once its shard is taken.
+    """
+
+    def __init__(self, mesh, tables, kind: str):
+        from spartan_tpu_torch.parallel import sumcheck_sharded as SS
+        from spartan_tpu_torch.parallel.mesh import shard_strided
+
+        self.mesh, self.D = mesh, mesh.size
+        if kind == "cubic":
+            self._evals, self._step = SS.make_cubic_evals, SS.make_cubic_step
+        else:
+            self._evals, self._step = SS.make_quad_evals, SS.make_quad_step
+        self.n = tables[0].len
+        assert self.n >= 2 * self.D and self.n % (2 * self.D) == 0
+        self.polys = tables   # rebound on the gather
+        self.sharded = []
+        for p in tables:
+            self.sharded.append(shard_strided(mesh, p.Z))
+            p.Z = None
+
+    def can_step(self) -> bool:
+        """Whether the folded tables still span the mesh above ``HOST_N``
+        (the fused step stays valid); otherwise ``fold_gather`` leaves."""
+        return self.n // 2 >= 2 * self.D and self.n // 2 > HP.HOST_N
+
+    def evals(self):
+        return self._evals(self.mesh, *self.sharded)
+
+    def step(self, r_dev):
+        """Fold by r, then the next round's evaluations: one launch a rank."""
+        *self.sharded, ev = self._step(self.mesh, *self.sharded, r_dev)
+        self.n //= 2
+        return ev
+
+    def fold_gather(self, r_dev) -> None:
+        """Fold once more (the step is no longer valid), then gather the
+        natural-order tables back into the polynomials on every rank."""
+        from spartan_tpu_torch.parallel.mesh import gather_unstride
+        from spartan_tpu_torch.parallel.sumcheck_sharded import make_fold
+
+        for p, t in zip(self.polys, make_fold(self.mesh, self.sharded, r_dev)):
+            p.rebind(gather_unstride(self.mesh, t))
+        self.sharded = None
+
+
+class _BatchedMeshTables:
+    """Strided-sharded tables of a batched product sumcheck (the product
+    trees' layers, the prove's largest sumchecks), as ``_MeshTables``; the
+    mesh is left once the folded tables reach ``leave`` entries."""
+
+    def __init__(self, mesh, TA, TB, TC, Cp, nP: int, leave: int):
+        from spartan_tpu_torch.parallel.mesh import shard_strided
+
+        self.mesh, self.D, self.nP = mesh, mesh.size, nP
+        self.n = Cp.shape[0]
+        assert self.n >= 2 * self.D and self.n % (2 * self.D) == 0
+        self.leave = leave
+
+        def shard(tables):
+            # take each shard, then drop the caller's full table
+            out = []
+            for k in range(len(tables)):
+                out.append(shard_strided(mesh, tables[k]))
+                tables[k] = None
+            return out
+
+        self.TA, self.TB, self.TC = shard(TA), shard(TB), shard(TC)
+        self.Cp = shard_strided(mesh, Cp)
+
+    def can_step(self) -> bool:
+        return self.n // 2 >= 2 * self.D and self.n // 2 > self.leave
+
+    def evals(self):
+        from spartan_tpu_torch.parallel.sumcheck_sharded import make_batched_evals
+
+        return make_batched_evals(self.mesh, self.nP, self.TA, self.TB, self.TC, self.Cp)
+
+    def step(self, r_dev):
+        """Fold every table by r, then the next round's evaluations."""
+        from spartan_tpu_torch.parallel.sumcheck_sharded import make_batched_step
+
+        self.TA, self.TB, self.TC, self.Cp, ev = make_batched_step(
+            self.mesh, self.nP, self.TA, self.TB, self.TC, self.Cp, r_dev)
+        self.n //= 2
+        return ev
+
+    def fold_gather(self, r_dev):
+        """Fold once more, then the natural-order tables on every rank."""
+        from spartan_tpu_torch.parallel.mesh import gather_unstride
+        from spartan_tpu_torch.parallel.sumcheck_sharded import make_batched_fold
+
+        TA, TB, TC, Cp = make_batched_fold(self.mesh, self.TA, self.TB, self.TC, self.Cp,
+                                           r_dev)
+        self.TA = self.TB = self.TC = self.Cp = None
+
+        def g(ts):
+            return [gather_unstride(self.mesh, t) for t in ts]
+
+        return g(TA), g(TB), g(TC), gather_unstride(self.mesh, Cp)
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +387,9 @@ class ZKSumcheckInstanceProof:
 
     @staticmethod
     def _rounds(kind: str, claim: int, blind_claim: int, num_rounds: int, tables,
-                gens_1, gens_n, transcript, random_tape):
-        """Shared round loop of the cubic-additive and quad sumchecks."""
+                gens_1, gens_n, transcript, random_tape, mesh=None):
+        """Shared round loop of the cubic-additive and quad sumchecks; with
+        ``mesh`` the tables are sharded until they shrink to ``HOST_N``."""
         if kind == "cubic":
             host_evals, evals, step = (HP.cubic_additive_evals, SK.additive_evals,
                                        SK.additive_step)
@@ -264,15 +409,20 @@ class ZKSumcheckInstanceProof:
         pending = None   # device evals for the current round (fused step)
         cur_n = tables[0].len
         dev = tables[0].Z.device
+        mesh_t = None
+        if mesh is not None and mesh.size > 1 and cur_n >= 2 * mesh.size and \
+                cur_n % (2 * mesh.size) == 0:
+            mesh_t = _MeshTables(mesh, tables, kind)
         for j in range(num_rounds):
             _t = _time.perf_counter()
-            if host is None and cur_n <= HP.HOST_N:
+            if mesh_t is None and host is None and cur_n <= HP.HOST_N:
                 host = mle.decode_tables([p.Z for p in tables])
             if host is not None:
                 v = host_evals(*host)
             else:
                 if pending is None:
-                    pending = evals(*(p.Z for p in tables))
+                    pending = mesh_t.evals() if mesh_t is not None else \
+                        evals(*(p.Z for p in tables))
                 v = F.decode_fr(pending)
             Timer.acc(f"zk_{kind}/evals", _time.perf_counter() - _t)
             _t = _time.perf_counter()
@@ -286,6 +436,14 @@ class ZKSumcheckInstanceProof:
             _t = _time.perf_counter()
             if host is not None:
                 host = [HP.fold_top(t, r_j) for t in host]
+            elif mesh_t is not None:
+                r_dev = mle.encode_scalar(r_j, dev)
+                if mesh_t.can_step():
+                    pending = mesh_t.step(r_dev)
+                else:
+                    mesh_t.fold_gather(r_dev)
+                    mesh_t = None
+                    pending = None
             else:
                 r_dev = mle.encode_scalar(r_j, dev)
                 if cur_n // 2 <= max(HP.HOST_N, 1):
@@ -324,16 +482,17 @@ class ZKSumcheckInstanceProof:
     @staticmethod
     def prove_cubic_with_additive_term(claim: int, blind_claim: int, num_rounds: int,
                                        poly_tau, poly_Az, poly_Bz, poly_Cz,
-                                       gens_1, gens_n, transcript, random_tape):
+                                       gens_1, gens_n, transcript, random_tape, mesh=None):
         """ZK sumcheck of sum tau*(Az*Bz - Cz) (sumcheck.rs:465-649)."""
         return ZKSumcheckInstanceProof._rounds(
             "cubic", claim, blind_claim, num_rounds,
-            [poly_tau, poly_Az, poly_Bz, poly_Cz], gens_1, gens_n, transcript, random_tape)
+            [poly_tau, poly_Az, poly_Bz, poly_Cz], gens_1, gens_n, transcript, random_tape,
+            mesh)
 
     @staticmethod
     def prove_quad(claim: int, blind_claim: int, num_rounds: int,
-                   poly_z, poly_ABC, gens_1, gens_n, transcript, random_tape):
+                   poly_z, poly_ABC, gens_1, gens_n, transcript, random_tape, mesh=None):
         """ZK sumcheck of sum z*ABC (sumcheck.rs:657-811)."""
         return ZKSumcheckInstanceProof._rounds(
             "quad", claim, blind_claim, num_rounds,
-            [poly_z, poly_ABC], gens_1, gens_n, transcript, random_tape)
+            [poly_z, poly_ABC], gens_1, gens_n, transcript, random_tape, mesh)

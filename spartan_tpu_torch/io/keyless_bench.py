@@ -8,7 +8,11 @@ The keyless circuit's files are not in the repository, so
 instead (the same seeded generator as the JAX package's).
 
 Runs on the CUDA card unless ``--device cpu``; every timed phase ends in
-``torch.cuda.synchronize()`` on the card.
+``torch.cuda.synchronize()`` on the card. ``--mesh N`` shards encode and
+prove over N ranks (``parallel/``): under ``torchrun`` the process joins the
+world torchrun started, otherwise it starts a world of N processes on this
+host; the ranks share one transcript and tape seed, and only rank 0 prints
+the report, with every rank's device and peak memory.
 
 Usage:
     python -m spartan_tpu_torch.io.keyless_bench --r1cs main.r1cs --wtns w.wtns
@@ -16,6 +20,9 @@ Usage:
     python -m spartan_tpu_torch.io.keyless_bench --synthetic 10 --device cpu \\
         --save DIR                      # then --verify-only DIR
     python -m spartan_tpu_torch.io.keyless_bench --synthetic 20 --profile DIR
+    python -m spartan_tpu_torch.io.keyless_bench --synthetic 20 --mesh 2
+    torchrun --standalone --nproc-per-node 2 -m spartan_tpu_torch.io.keyless_bench \
+        --synthetic 20 --mesh 2
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import subprocess
 import time
 
 import torch
+import torch.distributed as dist
 
 from spartan_tpu_torch import device as DEV
 from spartan_tpu_torch.io.r1cs_reader import R1CSFile, parse_wtns
@@ -192,27 +200,36 @@ def _device_top(prof, k: int = 12) -> list:
 
 def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False,
         config=None, save_dir: str | None = None, device=None,
-        profile_dir: str | None = None, tape_seed: bytes | None = None):
+        profile_dir: str | None = None, tape_seed: bytes | None = None, mesh=None):
     """Gens, encode, prove, verify with each phase timed; ``profile_dir``
     traces the prove with torch.profiler (CPU and CUDA activities) into
     ``profile_dir/prove_trace.json`` and reports the device's idle share.
     The prover's random tape is seeded from ``tape_seed`` (OS randomness
-    if None), so two runs of one seed make the same proof."""
+    if None, rank 0's under a mesh), so two runs of one seed make the same
+    proof. With ``mesh`` every rank calls this; encode and prove are
+    sharded over the mesh (on its device) and only rank 0 prints."""
     from spartan_tpu_torch.config import SpartanConfig
     from spartan_tpu_torch.utils.serialization import serialize
 
     if config is None:
         config = SpartanConfig(pcs=pcs)
     pcs = config.pcs
-    dev = DEV.resolve(device)
+    dev = mesh.device if mesh is not None else DEV.resolve(device)
     shape = inst.inst
     report: dict = {
         "num_cons": shape.num_cons, "num_vars": shape.num_vars,
         "num_inputs": shape.num_inputs,
         "nnz": [len(shape.A.vals), len(shape.B.vals), len(shape.C.vals)],
-        "pcs": pcs, "backend": dev.type, "mesh_devices": 0, "device": device_name(dev),
+        "pcs": pcs, "backend": dev.type, "device": device_name(dev),
+        "mesh_devices": mesh.size if mesh is not None else 0,
         "build_s": _build_kernels(dev),
     }
+    if mesh is not None:
+        report["mesh_backend"] = mesh.backend
+        if tape_seed is None:
+            box = [os.urandom(32)]
+            dist.broadcast_object_list(box, src=0)
+            tape_seed = box[0]
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -226,7 +243,7 @@ def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False
 
     Timer.collect()
     t0 = time.perf_counter()
-    comm, decomm = SNARK.encode(inst, gens)
+    comm, decomm = SNARK.encode(inst, gens, mesh=mesh)
     _sync(dev)
     report["encode_s"] = time.perf_counter() - t0
     report["encode_phases"] = _phases()
@@ -244,7 +261,7 @@ def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False
     try:
         proof = SNARK.prove(inst, comm, decomm, vars_, inputs, gens,
                             Transcript(b"keyless_bench"),
-                            RandomTape(b"snark_proof", seed=tape_seed))
+                            RandomTape(b"snark_proof", seed=tape_seed), mesh=mesh)
         _sync(dev)
         report["prove_s"] = time.perf_counter() - t0
     finally:
@@ -275,7 +292,7 @@ def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False
     raw = serialize(proof)
     report["proof_bytes"] = len(raw)
     report["proof_sha256"] = hashlib.sha256(raw).hexdigest()
-    if save_dir is not None:
+    if save_dir is not None and (mesh is None or mesh.rank == 0):
         os.makedirs(save_dir, exist_ok=True)
         with open(os.path.join(save_dir, "proof.bin"), "wb") as f:
             f.write(raw)
@@ -286,6 +303,16 @@ def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False
     report["ref_proof_bytes_keyless"] = 252_314 if pcs == "hyrax" else 120_422
     if dev.type == "cuda":
         report["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if mesh is not None:
+        ranks = [None] * mesh.size
+        dist.all_gather_object(ranks, {"rank": mesh.rank, "device": str(dev),
+                                       "peak_device_bytes": report.get("peak_device_bytes"),
+                                       "proof_sha256": report["proof_sha256"]})
+        report["mesh_ranks"] = ranks
+        if len({r["proof_sha256"] for r in ranks}) != 1:
+            raise RuntimeError(f"the ranks' proofs differ: {ranks}")
+        if mesh.rank != 0:
+            return report
 
     if json_out:
         print(json.dumps(report))
@@ -315,6 +342,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for the CPU)")
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard encode and prove over N ranks (joins torchrun's world, "
+                         "else starts N processes on this host)")
     ap.add_argument("--profile", metavar="DIR",
                     help="trace the prove with torch.profiler into DIR/prove_trace.json")
     ap.add_argument("--save", metavar="DIR",
@@ -325,19 +355,44 @@ def main(argv=None) -> None:
                          "--synthetic/--r1cs instance arguments)")
     args = ap.parse_args(argv)
 
-    if args.synthetic is not None:
-        data = synthetic(args.synthetic)
-    elif args.r1cs and args.wtns:
-        data = load_circom(args.r1cs, args.wtns)
-    else:
+    if not (args.synthetic is not None or (args.r1cs and args.wtns)):
         ap.error("provide --r1cs/--wtns or --synthetic LOG2")
+    if args.mesh > 1:
+        if args.verify_only or args.profile:
+            ap.error("--mesh shards encode and prove: not with --verify-only or --profile")
+        if "WORLD_SIZE" in os.environ:
+            from spartan_tpu_torch.parallel import init_distributed, make_mesh
 
+            init_distributed(device=args.device)
+            try:
+                _mesh_rank(make_mesh(args.mesh, device=args.device), args)
+            finally:
+                dist.destroy_process_group()
+        else:
+            from spartan_tpu_torch.parallel.launch import spawn
+
+            _build_kernels(torch.device("cpu" if args.device == "cpu" else "cuda"))
+            spawn(_mesh_rank, args.mesh, args, device=args.device)
+        return
+
+    data = _data(args)
     if args.verify_only:
         verify_only(*data, load_dir=args.verify_only, pcs=args.pcs, json_out=args.json,
                     device=args.device)
     else:
         run(*data, pcs=args.pcs, json_out=args.json, save_dir=args.save,
             device=args.device, profile_dir=args.profile)
+
+
+def _data(args):
+    if args.synthetic is not None:
+        return synthetic(args.synthetic)
+    return load_circom(args.r1cs, args.wtns)
+
+
+def _mesh_rank(mesh, args) -> None:
+    """One rank of ``--mesh``: the same instance, a sharded run."""
+    run(*_data(args), pcs=args.pcs, json_out=args.json, save_dir=args.save, mesh=mesh)
 
 
 if __name__ == "__main__":

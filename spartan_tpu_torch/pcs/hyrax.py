@@ -52,11 +52,13 @@ class PolyCommitment:
         transcript.append_message(label, b"poly_commitment_end")
 
 
-def commit_poly(poly: DensePolynomial, gens: PolyCommitmentGens, random_tape=None):
+def commit_poly(poly: DensePolynomial, gens: PolyCommitmentGens, random_tape=None,
+                mesh=None):
     """Commit Z row-by-row; blinds from the tape or zero (hyrax.rs:283-308).
 
     The reference's rayon-parallel ``commit_inner`` hot loop
-    (hyrax.rs:253-267) is one batched device MSM here.
+    (hyrax.rs:253-267) is one batched device MSM here; with ``mesh`` its
+    rows are sharded over the ranks.
     """
     ell = poly.num_vars
     left, right = EqPolynomial.compute_factored_lens(ell)
@@ -79,7 +81,7 @@ def commit_poly(poly: DensePolynomial, gens: PolyCommitmentGens, random_tape=Non
 
     Z = poly.Z.reshape(L_size, R_size, -1)
     blinds_mont = F.encode_fr(blinds, device=poly.Z.device)
-    pts = commit_rows(Z, blinds_mont, gens.gens.gens_n)
+    pts = commit_rows(Z, blinds_mont, gens.gens.gens_n, mesh=mesh)
     C = [GroupElem(p) for p in CU.decode_points(pts)]
     return PolyCommitment(C), PolyCommitmentBlinds(blinds)
 
@@ -95,7 +97,7 @@ class PolyEvalProof:
     @staticmethod
     def prove(poly: DensePolynomial, blinds: PolyCommitmentBlinds | None,
               r: list[int], Zr: int, blind_Zr: int | None,
-              gens: PolyCommitmentGens, transcript, random_tape):
+              gens: PolyCommitmentGens, transcript, random_tape, mesh=None):
         transcript.append_protocol_name(PolyEvalProof.PROTOCOL)
         assert poly.num_vars == len(r)
 
@@ -120,7 +122,7 @@ class PolyEvalProof:
                            for j in range(R_size)]
                 LZ = F.encode_fr(LZ_host, device=dev)
             else:
-                LZ = poly.bound(L_dev, L_size, R_size)
+                LZ = poly.bound(L_dev, L_size, R_size, mesh=mesh)
                 L_host = F.decode_fr(L_dev)
         LZ_blind = sum(b * l for b, l in zip(blind_vals, L_host)) % FR_MOD
 

@@ -176,15 +176,23 @@ class KZGSrs:
         return srs
 
 
-def _commit_msm(srs: KZGSrs, coeffs_mont) -> GroupElem:
-    """sum_i c_i [tau^i]G1 for coefficients [n, 8] Montgomery."""
+def _commit_msm(srs: KZGSrs, coeffs_mont, mesh=None) -> GroupElem:
+    """sum_i c_i [tau^i]G1 for coefficients [n, 8] Montgomery; with ``mesh``
+    the points are sharded over the ranks (``msm_sharded``)."""
     n = coeffs_mont.shape[0]
     if n > srs.size:
         raise ValueError(f"polynomial of {n} coefficients exceeds the SRS ({srs.size})")
     if n <= HP.HOST_COMMIT_POINTS:
         return GroupElem(CH.msm(F.decode_fr(coeffs_mont), srs.host_points(n)))
     pts = tuple(a[:n] for a in srs.powers_g1)
-    out = MSM.msm(pts, fr.from_mont(coeffs_mont))
+    if mesh is not None and mesh.size > 1 and n % mesh.size == 0 and n >= 4 * mesh.size:
+        from spartan_tpu_torch.parallel.mesh import shard_table
+        from spartan_tpu_torch.parallel.msm_sharded import msm_sharded
+
+        out = msm_sharded(mesh, tuple(shard_table(mesh, a) for a in pts),
+                          fr.from_mont(shard_table(mesh, coeffs_mont)))
+    else:
+        out = MSM.msm(pts, fr.from_mont(coeffs_mont))
     return GroupElem(CU.decode_points(tuple(a.unsqueeze(0) for a in out))[0])
 
 
@@ -219,7 +227,7 @@ class KZGProof:
     proof: GroupElem
 
     @staticmethod
-    def prove(coeffs_mont, point: int, srs: KZGSrs) -> tuple["KZGProof", int]:
+    def prove(coeffs_mont, point: int, srs: KZGSrs, mesh=None) -> tuple["KZGProof", int]:
         n = coeffs_mont.shape[0]
         eval_, zpow = _evaluate(coeffs_mont, point)
         if n <= 1:
@@ -234,7 +242,7 @@ class KZGProof:
                 zinv = F.encode_fr([fr_inv(point)], device=dev)[0]
                 q = k_quotient(coeffs_mont, zpow, zinv)
         del zpow   # 1 GB at 2^25 coefficients, freed before the MSM
-        return KZGProof(_commit_msm(srs, q)), eval_
+        return KZGProof(_commit_msm(srs, q, mesh=mesh)), eval_
 
     def verify(self, commitment: KZGCommitment, point: int, eval_: int,
                srs: KZGSrs) -> bool:
@@ -300,15 +308,16 @@ class KZGPolyCommitmentGens:
     def __init__(self, srs: KZGSrs):
         self.srs = srs
 
-    def commit(self, poly) -> "KZGPolyCommitment":
+    def commit(self, poly, mesh=None) -> "KZGPolyCommitment":
         """Commit a DensePolynomial's evaluation vector (as coefficients)."""
-        return KZGPolyCommitment(_commit_msm(self.srs, poly.Z))
+        return KZGPolyCommitment(_commit_msm(self.srs, poly.Z, mesh=mesh))
 
-    def prove_eval(self, poly, _r_joint, _claim, transcript) -> "KZGPolyEvalProof":
+    def prove_eval(self, poly, _r_joint, _claim, transcript,
+                   mesh=None) -> "KZGPolyEvalProof":
         """The reference's KZG derefs flow (sparse_mlpoly_full.rs:503-550):
         draw a univariate challenge point and open the coefficients there."""
         point = transcript.challenge_scalar(b"kzg_eval_point")
-        proof, eval_ = KZGProof.prove(poly.Z, point, self.srs)
+        proof, eval_ = KZGProof.prove(poly.Z, point, self.srs, mesh=mesh)
         return KZGPolyEvalProof(proof.proof, eval_)
 
     def verify_eval(self, proof: "KZGPolyEvalProof", comm: "KZGPolyCommitment",

@@ -101,6 +101,13 @@ class Instance:
             return self.inst.is_sat(padded.assignment, inputs.assignment)
 
 
+def _check_mesh(mesh, gens) -> None:
+    if mesh is not None:
+        from spartan_tpu_torch.parallel.mesh import check_device
+
+        check_device(mesh, gens.device)
+
+
 class NIZKGens:
     """Generators of the NIZK, on ``device`` (the CUDA card by default;
     raises if there is none and ``device`` is not given)."""
@@ -122,7 +129,11 @@ class NIZK:
     @staticmethod
     def prove(inst: Instance, vars_: Assignment, input_: Assignment,
               gens: NIZKGens, transcript: Transcript,
-              random_tape: RandomTape | None = None) -> "NIZK":
+              random_tape: RandomTape | None = None, mesh=None) -> "NIZK":
+        """``mesh`` (``parallel.make_mesh``, on the generators' device)
+        shards the prove over its ranks; every rank must call this with the
+        same arguments, and gets the single-device proof."""
+        _check_mesh(mesh, gens)
         tape = random_tape if random_tape is not None else RandomTape(b"proof")
         transcript.append_protocol_name(NIZK.PROTOCOL)
         transcript.append_message(b"R1CSShapeDigest", inst.digest)
@@ -134,7 +145,7 @@ class NIZK:
         with DEV.use(gens.device):
             proof, rx, ry = R1CSProof.prove(
                 inst.inst, padded.assignment, input_.assignment,
-                gens.gens_r1cs_sat, transcript, tape,
+                gens.gens_r1cs_sat, transcript, tape, mesh=mesh,
             )
         return NIZK(proof, (rx, ry))
 
@@ -206,15 +217,21 @@ class SNARK:
     PROTOCOL = b"Spartan SNARK proof"
 
     @staticmethod
-    def encode(inst: Instance, gens: SNARKGens) -> tuple[R1CSCommitment, R1CSDecommitment]:
-        """Preprocessing: commit the R1CS matrices (snark.rs:416-425)."""
+    def encode(inst: Instance, gens: SNARKGens,
+               mesh=None) -> tuple[R1CSCommitment, R1CSDecommitment]:
+        """Preprocessing: commit the R1CS matrices (snark.rs:416-425);
+        ``mesh`` shards the row commits."""
+        _check_mesh(mesh, gens)
         with DEV.use(gens.device):
-            return inst.inst.commit(gens.gens_r1cs_eval)
+            return inst.inst.commit(gens.gens_r1cs_eval, mesh=mesh)
 
     @staticmethod
     def prove(inst: Instance, comm: R1CSCommitment, decomm: R1CSDecommitment,
               vars_: Assignment, input_: Assignment, gens: SNARKGens,
-              transcript: Transcript, random_tape: RandomTape | None = None) -> "SNARK":
+              transcript: Transcript, random_tape: RandomTape | None = None,
+              mesh=None) -> "SNARK":
+        """``mesh`` as in ``NIZK.prove``: the same proof from every rank."""
+        _check_mesh(mesh, gens)
         tape = random_tape if random_tape is not None else RandomTape(b"snark_proof")
         transcript.append_protocol_name(SNARK.PROTOCOL)
         comm.append_to_transcript(b"comm", transcript)
@@ -226,14 +243,14 @@ class SNARK:
         with DEV.use(gens.device):
             r1cs_sat_proof, rx, ry = R1CSProof.prove(
                 inst.inst, padded.assignment, input_.assignment,
-                gens.gens_r1cs_sat, transcript, tape)
+                gens.gens_r1cs_sat, transcript, tape, mesh=mesh)
             inst_evals = inst.inst.evaluate(rx, ry)
             # the matrices' device copies are done with; free them before
             # the lookup argument
             for m in (inst.inst.A, inst.inst.B, inst.inst.C):
                 m.release_device()
             r1cs_eval_proof = R1CSEvalProof.prove(
-                decomm, rx, ry, inst_evals, gens.gens_r1cs_eval, transcript, tape)
+                decomm, rx, ry, inst_evals, gens.gens_r1cs_eval, transcript, tape, mesh=mesh)
         return SNARK(r1cs_sat_proof, inst_evals, r1cs_eval_proof)
 
     def verify(self, comm: R1CSCommitment, input_: Assignment,

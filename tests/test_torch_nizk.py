@@ -128,6 +128,7 @@ def test_import_is_jax_free_and_wants_cuda():
         "import spartan_tpu_torch\n"
         "import spartan_tpu_torch.snark, spartan_tpu_torch.interop\n"
         "import spartan_tpu_torch.io.keyless_bench, spartan_tpu_torch.ops.kernels\n"
+        "import spartan_tpu_torch.parallel, spartan_tpu_torch.parallel.launch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spartan_tpu' or m.startswith('spartan_tpu.')]\n"
         "assert not bad, bad\n"

@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # what a checkout's proof of life runs
     python3 chip_smoke.py --tail-kernels DIR
-        # only T1's and T2's launch times at the prove's shapes, for the
-        # checkout at DIR (its own sources): another tree's kernels beside
-        # this one's in the same call
+        # only T1's and T2's launch times at the prove's shapes and H4's at
+        # its four (``h4_times``), for the checkout at DIR (its own
+        # sources): another tree's kernels beside this one's in the same call
 
 Phases, each printing one JSON line (``"phase": ...``):
 
@@ -31,8 +31,15 @@ Phases, each printing one JSON line (``"phase": ...``):
             each with its launch configuration; and the fused driver on one
             leaf-layout sumcheck of 2^14 entries timed for each T2 entry
             size, 5 times in turns (``tail_threshold``);
-4. kzg_msm  one single-row MSM of 2^16 points at c = 16 (H4's 32-lane
-            path at 65,535 buckets) against the host C MSM;
+   h4_times H4 timed on bucket tables of generator points at the four
+            shapes the 2^20 proves give it (a KZG bucket pass of 2 x 65,535,
+            a KZG MSM's 16 x 65,535 in one launch, the derefs commit's launch
+            of 8,191 x 1,023, the witness commit's 37,888 x 127), each with
+            its layout beside its bound, and the few-rows layout at every
+            segment length at 2 and 16 rows (the same function as
+            ``--tail-kernels`` runs for a parent tree);
+4. kzg_msm  one single-row MSM of 2^16 points at c = 16 (H4's few-rows
+            layout at 16 x 65,535 buckets) against the host C MSM;
 5. nizk     NIZK.prove / verify of a synthetic 2^16-constraint instance
             (the SNARK below runs the same R1CSProof at 2^20);
 6. snark    SNARKGens, SNARK.encode / prove / verify of a synthetic
@@ -55,9 +62,13 @@ Phases, each printing one JSON line (``"phase": ...``):
             prove (counts zeroed just before, read just after; all ten
             kernels must launch), verify (two pairings on the host), a
             corrupted KZG opening rejected, the per-round and second fused
-            proves as in ``snark``; then H3, H4 and the sort timed
+            proves as in ``snark``; H4's launches exactly 3 (the witness
+            commit, and each KZG MSM's 16 windows in one launch, 2 from
+            ``kzg._commit_msm``); then H3, H4 and the sort timed
             on one bucket pass of its MSMs (2 digit rows of 2^25 points,
-            c = 16) beside their bounds;
+            c = 16) beside their bounds, H4 on one MSM's whole table (16 x
+            65,535) against its plain version, and that MSM of 2^25 points
+            at c = 14, 15, 16 (``SpartanConfig.msm_window``) in 3 turns;
 8. sharded  the snark phase's instance (saved to build/smoke_sharded, not
             built again) proved by a world of 2 ranks that share the one
             card (``parallel/``; gloo, whose collectives the ranks stage
@@ -67,7 +78,8 @@ Phases, each printing one JSON line (``"phase": ...``):
             equal the single-device bytes of the snark / snark_kzg phases
             and verify; every rank's prove must launch every kernel but
             T1 (the mesh hands each product sumcheck to T2 at
-            SMALL_BUCKET_N entries), T2 once per layer sumcheck, and take
+            SMALL_BUCKET_N entries), T2 once per layer sumcheck, H4 as
+            often as SHARDED_H4 says, and take
             every mesh branch (both ZK phases' and the product layers'
             sharded tables, each 1/D of its full size, so that S2's
             largest table is 1/D of the single-device prove's; the
@@ -137,6 +149,26 @@ HORNER_SHAPES = (("derefs commit MSM", 820, 10), ("witness commit MSM", 1 << 10,
 # H2's double-and-add: a bullet fold of 2^14 generators, the first size the
 # bullet reductions keep on the card (above hostpath.HOST_MSM_N)
 SCALAR_MUL_N = 1 << 14
+# H4's shapes in the 2^20 proves, (label, rows, buckets): a KZG MSM's bucket
+# pass of CHUNK_BUDGET // 2^25 rows (H4's launch while it ran per chunk),
+# its 16 windows in one launch, the Hyrax derefs commit's launch
+# (M.CHUNK_BUDGET // 8,193 rows) and the witness commit's (1024 rows x 37
+# windows)
+H4_SHAPES = (("kzg pass", 2, 65535), ("kzg msm", 16, 65535),
+             ("derefs launch", 8191, 1023), ("witness launch", 37888, 127))
+H4_SWEEP_LG = (2, 3, 4, 5, 6)   # the few-rows layout's segments, 2^lg buckets
+# H4's launches in one 2^20 prove: under Hyrax the witness commit (one
+# launch) and the derefs commit's 5 MSMs of 26 x <= 820 rows, each table
+# above msm.TABLE_BUDGET, so 3 chunk launches each; under KZG the witness
+# commit and the two KZG MSMs (the derefs commit, the opening's quotient),
+# each MSM's 16 windows in one launch (their tables of 101 MB fit
+# TABLE_BUDGET; before, 8 launches of 2 rows each: 17)
+H4_PROVE = {"hyrax": 16, "kzg": 3}
+# and in each rank of the sharded phase: under Hyrax its row commits' 10
+# chunk launches; under KZG its witness rows' one and the two MSMs of
+# 2^24 + 1 points a rank, each in one launch (before, 6 of 3 rows each: 13)
+SHARDED_H4 = {"hyrax": 10, "kzg": 3}
+KZG_SWEEP_C, KZG_SWEEP_TURNS = (14, 15, 16), 3
 NIZK_LOG2 = 16       # the NIZK alone
 CROSS_LOG2 = 10      # card-vs-CPU NIZK comparison
 CROSS_SNARK_LOG2 = 8  # card-vs-CPU SNARK comparison, both PCS modes
@@ -306,12 +338,13 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
     if argv:
-        # another checkout's T1 and T2 (its own sources and builds), to set
-        # beside this one's in the same call
-        K.build_all(["sc_transcript", "sc_tail"])
+        # another checkout's T1, T2 and H4 (its own sources and builds), to
+        # set beside this one's in the same call
+        names = ("sc_transcript", "sc_tail", "msm_weighted")
+        K.build_all(names)
         emit({"phase": "tail_kernels", "tree": root, "nvidia_smi": smi,
-              "ptxas": {n: K.ptxas(n) for n in ("sc_transcript", "sc_tail")},
-              **tail_kernel_times(torch, dev)})
+              "ptxas": {n: K.ptxas(n) for n in names}, **tail_kernel_times(torch, dev),
+              "h4": h4_times(torch, dev)})
         return 0
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
@@ -331,6 +364,9 @@ def main(argv) -> int:
     for name in SOURCES:
         report[name]["ptxas"] = K.ptxas(name)
     emit({"phase": "registers", "ptxas": {n: report[n]["ptxas"] for n in SOURCES}})
+    h4 = h4_times(torch, dev)
+    report["msm_weighted"]["detail"]["h4_times"] = h4
+    emit({"phase": "h4_times", "nvidia_smi": smi, **h4})
     run_kzg_msm(torch, dev)
     run_nizk(torch, NIZK_LOG2)
     data = snark_instance(SNARK_LOG2)
@@ -688,18 +724,18 @@ def msm_launch(torch, pts, dig, c: int) -> dict:
     walk, walk_plain = (torch.empty(B * -(-N // M.TILE), dtype=torch.int32, device=dig.device)
                         for _ in range(2))
     buckets = M.launch_msm_bucket(*args, nb, walk=walk)
-    lg = M.seglen_log2(nb)
-    sums = M.launch_msm_weighted(buckets, lg)
+    lg, ls = M.h4_layout(B, nb)
+    sums = M.launch_msm_weighted(buckets, lg, ls)
     want, pms3 = cuda_once(torch, lambda: M.bucket_sums_plain(*args, nb, walk=walk_plain))
     err3 = max(diff(torch, buckets, want), diff(torch, walk, walk_plain))
     del want
-    want, pms4 = cuda_once(torch, lambda: M.weighted_sums_plain(buckets, lg))
+    want, pms4 = cuda_once(torch, lambda: M.weighted_sums_plain(buckets, lg, ls))
     err4 = diff(torch, sums, want)
     del want
     if err3 or err4:
         raise AssertionError(f"H3/H4: kernel != plain ({err3}, {err4})")
     ms3 = cuda_ms(torch, lambda: M.launch_msm_bucket(*args, nb), 3)
-    ms4 = cuda_ms(torch, lambda: M.launch_msm_weighted(buckets, lg), 3)
+    ms4 = cuda_ms(torch, lambda: M.launch_msm_weighted(buckets, lg, ls), 3)
     most = int(walk.max().item())
     if most > M.TILE - 1:
         raise AssertionError(f"H3: a thread made {most} mixed adds")
@@ -716,9 +752,76 @@ def msm_launch(torch, pts, dig, c: int) -> dict:
                            "max_thread_mixed_adds": most, **runs,
                            "ptxas": K.ptxas("msm_bucket")},
             "msm_weighted": {"ms": ms4, "plain_ms": pms4, "bound_ms": b4, "bound_by": b4by,
-                             "shape": f"{B} rows x {nb} buckets, {1 << M._lanes_log2(nb, lg)}"
-                                      f" lanes of {1 << lg} buckets per row",
+                             "share_of_bound": b4 / ms4,
+                             "shape": f"{B} rows x {nb} buckets", **h4_layout_of(B, nb),
                              "ptxas": K.ptxas("msm_weighted")}}
+
+
+def h4_layout_of(rows: int, nb: int) -> dict:
+    """H4's layout at rows x nb: segment, lanes a group, and the levels
+    [(lanes a group, groups a row, doublings)]."""
+    from spartan_tpu_torch.ops import msm as M
+
+    lg, ls = M.h4_layout(rows, nb)
+    return {"segment": 1 << lg, "lanes": 1 << ls,
+            "levels": [[1 << l, g, d] for l, g, d in M.h4_levels(nb, lg, ls)]}
+
+
+def bucket_table_like(torch, dev, gen, rows: int, nb: int) -> tuple:
+    """A [rows, nb] bucket table of generator multiples (Z = 1), every
+    sixteenth bucket the identity: H4 makes the same additions on any
+    values (complete formulas), so its time is that of real buckets."""
+    from spartan_tpu_torch.ops import curve as CU
+    from spartan_tpu_torch.ops import curve_host as CH
+    from spartan_tpu_torch.ops import field as F
+
+    bx, by_, _ = CU.encode_points_affine([CH.scalar_mul(s, CH.GEN) for s in range(1, 257)], dev)
+    idx = torch.randint(0, 256, (rows * nb,), device=dev, generator=gen)
+    x, y, z = bx[idx], by_[idx], F.fq.one((rows * nb,), dev)
+    for c in (x, z):
+        c[::16] = 0
+    return tuple(a.reshape(rows, nb, 8).contiguous() for a in (x, y, z))
+
+
+def h4_times(torch, dev) -> dict:
+    """H4 of the package this script imported (this checkout's, or another
+    checkout's under ``--tail-kernels DIR``, whose H4 may predate the
+    few-rows layout) on bucket tables at H4_SHAPES: each a median of 3
+    windows of wrapper calls (CUDA events), beside its bound; for this
+    checkout also the few-rows layout at each segment of H4_SWEEP_LG at 2
+    and 16 rows of 65,535 buckets."""
+    from spartan_tpu_torch.ops import msm as M
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    few = hasattr(M, "h4_layout")
+
+    def ms(fn, reps):
+        per = sorted(cuda_ms(torch, fn, reps) for _ in range(3))
+        return {"ms": per[1], "ms_spread": [per[0], per[2]]}
+
+    rows_out, sweep = [], []
+    for label, rows, nb in H4_SHAPES:
+        table = bucket_table_like(torch, dev, gen, rows, nb)
+        if few:
+            lg, ls = M.h4_layout(rows, nb)
+            t = ms(lambda: M.launch_msm_weighted(table, lg, ls), 5)
+            layout = h4_layout_of(rows, nb)
+        else:
+            lg = M.seglen_log2(nb)
+            t = ms(lambda: M.launch_msm_weighted(table, lg), 5)
+            layout = {"segment": 1 << lg, "lanes": 1 << M._lanes_log2(nb, lg)}
+        b, by = bound(rows * nb * 96 + rows * 96, rows * 2 * (nb - 1) * PADD_M * MONT)
+        rows_out.append({"shape": label, "rows": rows, "buckets": nb, **layout, **t,
+                         "bound_ms": b, "bound_by": by, "share_of_bound": b / t["ms"]})
+        if few and nb == 65535:
+            for lg in H4_SWEEP_LG:
+                sweep.append({"rows": rows, "segment": 1 << lg, "lanes": 32,
+                              "chosen": (lg, 5) == M.h4_layout(rows, nb),
+                              **ms(lambda: M.launch_msm_weighted(table, lg, 5), 5)})
+        del table
+    torch.cuda.empty_cache()
+    return {"shapes": rows_out, "few_rows_sweep": sweep}
 
 
 def h3_runs(torch, sd, start) -> dict:
@@ -1293,6 +1396,15 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
     want = tail_launches(SF.SMALL_BUCKET_N)
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"{pcs}: T1/T2 launches {counts} != {want}")
+    # H4: H4_PROVE launches; under KZG each of the two KZG MSMs in one
+    h4_sites = {}
+    for row in launches:
+        if row["kernel"] == "msm_weighted":
+            h4_sites[row["site"]] = h4_sites.get(row["site"], 0) + row["launches"]
+    if counts["msm_weighted"] != H4_PROVE[pcs] or (
+            pcs == "kzg" and h4_sites.get("kzg._commit_msm") != 2):
+        raise AssertionError(f"{pcs}: H4 launches {counts['msm_weighted']} by site {h4_sites}, "
+                             f"expected {H4_PROVE[pcs]}")
 
     raw = serialize(proof)
     t = time.perf_counter()
@@ -1364,6 +1476,7 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
           "gens_peak_device_bytes": gens_peak,
           "encode_peak_device_bytes": encode_peak, "prove_peak_device_bytes": peak,
           "launches": counts, "kernel_totals": totals, "h2_launches": h2,
+          "h4_launches_by_site": h4_sites,
           "t1_t2_launches": tails, "t1_t2_expected": want,
           "corrupted_rejected": True,
           "fused_vs_per_round": {
@@ -1476,14 +1589,16 @@ def run_sharded(torch, inst_path: str, refs: dict) -> list:
             "note": f"{SHARDED_WORLD} ranks share one card (gloo, host-staged collectives): "
                     "a correctness run of the sharded path, not a multi-GPU speed figure",
             "spawn_to_join_s": wall_s, "load_s": [r["load_s"] for r in ranks],
-            "expected_kernels": list(SHARDED_KERNELS), "expected_t2": want_t2}
+            "expected_kernels": list(SHARDED_KERNELS), "expected_t2": want_t2,
+            "expected_h4": SHARDED_H4}
     failures = []
     for pcs, ref in refs.items():
         same = all(r[pcs]["comm"] == ref["comm"] and r[pcs]["proof"] == ref["proof"]
                    for r in ranks)
         launched = all(min(r[pcs]["launches"][k] for k in SHARDED_KERNELS) > 0
                        and r[pcs]["launches"]["sc_transcript"] == 0
-                       and r[pcs]["launches"]["sc_tail"] == want_t2 for r in ranks)
+                       and r[pcs]["launches"]["sc_tail"] == want_t2
+                       and r[pcs]["launches"]["msm_weighted"] == SHARDED_H4[pcs] for r in ranks)
         engaged = [mesh_engaged(r[pcs], pcs, ref["s2_max_entries"]) for r in ranks]
         line[pcs] = {
             "identical": same, "kernels_launched": launched,
@@ -1576,8 +1691,11 @@ def run_nccl_world1(torch) -> None:
 
     t = time.perf_counter()
     (r,) = spawn(nccl_rank, 1, device="cuda", backend="nccl")
+    # H4 once: msm_sharded's windows of 2^12 points in one launch (counted
+    # after the reference msm)
     ok = r["psum_equal"] and r["gather_equal"] and r["msm_equal"] and \
-        min(r["launches"][k] for k in ("msm_bucket", "msm_weighted", "curve_ew")) > 0
+        min(r["launches"][k] for k in ("msm_bucket", "curve_ew")) > 0 and \
+        r["launches"]["msm_weighted"] == 1
     emit({"phase": "nccl_world1", **r, "ok": ok, "s": time.perf_counter() - t,
           "note": "NCCL takes one rank per card: on one card it runs only as a world of 1"})
     if not ok:
@@ -1600,8 +1718,16 @@ def kzg_pass(torch, dev, srs, report) -> None:
     of 2^25 SRS points, c = 16), the table's values in its proportions (a
     quarter zero padding; in each matrix's quarter, its 2^20 padding
     entries one repeated value), held bit for bit against their plain
-    versions and timed beside their bounds."""
+    versions and timed beside their bounds. Then the MSM's whole bucket
+    table (16 windows, filled by H3 in passes of CHUNK_BUDGET // 2^25 rows,
+    as ``msm.window_sums`` does) through H4 in one launch, against H4's
+    plain version bit for bit; and the MSM itself at each c of KZG_SWEEP_C
+    (``SpartanConfig.msm_window``), KZG_SWEEP_TURNS turns of all, equal
+    affine points."""
+    from spartan_tpu_torch import config
+    from spartan_tpu_torch.ops import curve as CU
     from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import kernels as K
     from spartan_tpu_torch.ops import msm as M
 
     N = 1 << (SNARK_LOG2 + 5)
@@ -1613,16 +1739,62 @@ def kzg_pass(torch, dev, srs, report) -> None:
     for k in range(6):
         sc[k * per + nnz:(k + 1) * per] = sc[k * per]
     sc[6 * per:] = 0
-    dig = M.window_digits(sc, c)
-    del sc
+    dig = M.window_digits(sc, c).t().contiguous()      # [W, N]
     B = M.CHUNK_BUDGET // N
-    rows = dig[:, :B].t().contiguous()
-    del dig
     pts = tuple(a[:N] for a in srs.powers_g1)
-    one = msm_launch(torch, pts, rows, c)
+    one = msm_launch(torch, pts, dig[:B], c)
     for name in ("msm_bucket", "msm_weighted"):
         report[name]["detail"]["kzg_pass"] = one[name]
         emit({"phase": "kernels", "kernel": name, "kzg_pass": one[name]})
+
+    # the MSM's whole table in one H4 launch
+    W, nb = dig.shape[0], (1 << c) - 1
+    table = tuple(torch.empty((W, nb, 8), dtype=torch.int32, device=dev) for _ in range(3))
+    for s in range(0, W, B):
+        M.bucket_sums(pts, dig[s:s + B], c, out=tuple(t[s:s + B] for t in table))
+    del dig
+    lg, ls = M.h4_layout(W, nb)
+    got = M.launch_msm_weighted(table, lg, ls)
+    want, pms = cuda_once(torch, lambda: M.weighted_sums_plain(table, lg, ls))
+    err = diff(torch, got, want)
+    if err:
+        raise AssertionError(f"H4 at {W} x {nb}: kernel != plain ({err})")
+    per_ms = sorted(cuda_ms(torch, lambda: M.launch_msm_weighted(table, lg, ls), 5)
+                    for _ in range(3))
+    b, by = bound(W * nb * 96 + W * 96, W * 2 * (nb - 1) * PADD_M * MONT)
+    whole = {"shape": f"{W} rows x {nb} buckets (one KZG MSM's windows, one launch)",
+             **h4_layout_of(W, nb), "ms": per_ms[1], "ms_spread": [per_ms[0], per_ms[2]],
+             "plain_ms": pms, "bound_ms": b, "bound_by": by, "share_of_bound": b / per_ms[1],
+             "max_abs_err": err, "ptxas": K.ptxas("msm_weighted")}
+    report["msm_weighted"]["detail"]["kzg_msm_table"] = whole
+    emit({"phase": "kernels", "kernel": "msm_weighted", "kzg_msm_table": whole})
+    del table, got, want
+    torch.cuda.empty_cache()
+
+    # the window sweep: the whole MSM at each c, in turns
+    times = {str(w): [] for w in KZG_SWEEP_C}
+    values = set()
+    saved = config.DEFAULT.msm_window
+    try:
+        for _ in range(KZG_SWEEP_TURNS):
+            for w in KZG_SWEEP_C:
+                config.DEFAULT.msm_window = w
+                out, ms = cuda_once(torch, lambda: M.msm(pts, sc))
+                times[str(w)].append(ms)
+                values.add(CU.decode_points(tuple(a.unsqueeze(0) for a in out))[0])
+    finally:
+        config.DEFAULT.msm_window = saved
+    wins = {k: 0 for k in times}
+    for t in range(KZG_SWEEP_TURNS):
+        wins[min(times, key=lambda k: times[k][t])] += 1
+    line = {"phase": "kzg_window_sweep", "points": N, "choose_window": c, "ms": times,
+            "fastest_in_turns": wins, "same_point": len(values) == 1,
+            "another_c_won_every_turn": any(v == KZG_SWEEP_TURNS for k, v in wins.items()
+                                            if k != str(c))}
+    report["msm_weighted"]["detail"]["kzg_window_sweep"] = line
+    emit(line)
+    if len(values) != 1:
+        raise AssertionError("kzg_window_sweep: the MSM's value depends on its window")
 
 
 def run_kzg_msm(torch, dev) -> None:

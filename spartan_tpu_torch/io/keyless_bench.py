@@ -214,6 +214,8 @@ def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False
     if config is None:
         config = SpartanConfig(pcs=pcs)
     pcs = config.pcs
+    if config.profile:
+        Timer.enable()
     dev = mesh.device if mesh is not None else DEV.resolve(device)
     shape = inst.inst
     report: dict = {

@@ -65,7 +65,8 @@ _SIGNATURES = {
                  "curve_scalar_mul_launch": [_P, _I] + [_P] * 3 + [_L] + [_P] * 4},
     "msm_bucket": {"msm_bucket_launch": [_P] * 5 + [_I] * 4 + [_P] * 7 + [_L] + [_P] * 4
                    + [_L, _P, _P]},
-    "msm_weighted": {"msm_weighted_launch": [_P] * 3 + [_I, _I, _I, _L] + [_P] * 4},
+    "msm_weighted": {"msm_weighted_launch": [_P] * 3 + [_I, _I, _I, _L] + [_P] * 3 + [_L]
+                     + [_P] * 4},
     "sc_fold": {"sc_fold_launch": [_U64P, _I, _P, _L, _I, _P]},
     "sc_round_prod": {"sc_round_prod_launch": [_I, _U64P, _I, _P, _L, _I, _P, _P]},
     "sc_round_additive": {"sc_round_additive_launch": [_I, _U64P, _P, _L, _I, _P, _P]},

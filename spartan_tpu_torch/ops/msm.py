@@ -11,9 +11,13 @@ windows of every scalar row:
      never makes more than TILE - 1, however long a bucket's run), and adds
      the pieces of runs cut by tile edges in further tile passes, one level
      up each, into the bucket sums;
-  3. kernel H4 (``csrc/msm_weighted.cu``) forms sum_b b * B_b per row on
-     a few lanes of a warp: a segment of buckets per lane, then a suffix
-     scan, doublings and a tree over the row's lanes;
+  3. kernel H4 (``csrc/msm_weighted.cu``) forms sum_b b * B_b per row: a
+     segment of buckets per lane, then a suffix scan, doublings and a tree
+     over a group of lanes; a row is one group of up to a warp where the
+     rows fill the card, else many warps' groups, combined by further
+     levels of the same scan and tree (``h4_layout``). Where an MSM's
+     bucket table fits TABLE_BUDGET, H3 fills it in chunks and H4 runs
+     once over all of its rows (``window_sums``);
   4. the window sums are combined by H2's Horner ladder (c doublings and
      one addition per window), one launch per MSM.
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from spartan_tpu_torch.config import DEFAULT
 from spartan_tpu_torch.ops import curve as CU
 from spartan_tpu_torch.ops import kernels as K
 from spartan_tpu_torch.ops.limbs import NUM_LIMBS
@@ -43,10 +48,20 @@ LADDER_N = 64
 CHUNK_BUDGET = 1 << 26
 # sorted positions per H3 tile: the most points one thread walks
 TILE = 32
-# H4: buckets per lane (segment) where the row's buckets allow, and the
-# most lanes one row takes (a warp)
+# H4's one-warp layout: buckets per lane (segment) where the row's buckets
+# allow, and the most lanes one group takes (a warp)
 SEGLEN = 64
 LANES = 32
+# H4 keeps the one-warp layout where its lanes fill this many warps, 7 an
+# SM of the H100's 132 (it holds 11 an SM at H4's 178 registers; at 2 and
+# 16 rows of 65,535 buckets ~1,000 warps were fastest); fewer rows take the
+# few-rows layout, segments of 2^FEW_LG_MAX .. 2^FEW_LG_MIN buckets in
+# groups of a warp
+FILL_WARPS = 132 * 7
+FEW_LG_MAX, FEW_LG_MIN = 6, 3
+# bytes of an MSM's bucket table [W * B, nb] (96 a bucket) up to which H4
+# runs once over all its rows (``window_sums``); larger tables go by chunks
+TABLE_BUDGET = 1 << 28
 
 
 def window_digits(scalars: torch.Tensor, c: int, num_bits: int = 254) -> torch.Tensor:
@@ -249,10 +264,11 @@ def bucket_sums_plain(px, py, order, sd, start, nb: int, walk=None):
     return tuple(a.reshape(B, nb, NUM_LIMBS) for a in out)
 
 
-def launch_msm_bucket(px, py, order, sd, start, nb: int, walk=None):
-    """H3 on CUDA: px, py [N, 8]; order, sd [B, N]; start [B] -> [B, nb].
-    walk, if given: int32 [B * ceil(N / TILE)], filled with the mixed adds
-    each tile's thread made."""
+def launch_msm_bucket(px, py, order, sd, start, nb: int, walk=None, out=None):
+    """H3 on CUDA: px, py [N, 8]; order, sd [B, N]; start [B] -> [B, nb],
+    into ``out`` if given (three [B, nb, 8]). walk, if given: int32
+    [B * ceil(N / TILE)], filled with the mixed adds each tile's thread
+    made."""
     N = px.shape[0]
     B = sd.shape[0]
     dev = px.device
@@ -261,6 +277,10 @@ def launch_msm_bucket(px, py, order, sd, start, nb: int, walk=None):
                   ("order", order, (B, N)), ("sd", sd, (B, N)), ("start", start, (B,))]
         if walk is not None:
             checks.append(("walk", walk, (B * -(-N // TILE),)))
+        if out is None:
+            out = tuple(torch.empty((B, nb, NUM_LIMBS), dtype=torch.int32, device=dev)
+                        for _ in range(3))
+        checks += [(f"out {k}", o, (B, nb, NUM_LIMBS)) for k, o in zip("xyz", out)]
         for name, t, shape in checks:
             if t.dtype != torch.int32 or tuple(t.shape) != shape:
                 raise ValueError(f"H3 {name}: expected int32 {shape}, got "
@@ -271,8 +291,6 @@ def launch_msm_bucket(px, py, order, sd, start, nb: int, walk=None):
                 raise ValueError(f"H3 {name}: must be contiguous and 16-byte aligned")
         if (B * nb) << 2 >= 1 << 31:
             raise ValueError(f"H3: {B} rows x {nb} buckets overflow the int32 piece keys")
-        out = tuple(torch.empty((B, nb, NUM_LIMBS), dtype=torch.int32, device=dev)
-                    for _ in range(3))
         if B == 0:
             return out
         sizes = _levels(B, N)
@@ -292,15 +310,21 @@ def launch_msm_bucket(px, py, order, sd, start, nb: int, walk=None):
     return out
 
 
-def bucket_sums(points, digits, c):
-    """Bucket sums of buckets 1..2^c-1 for digit rows [B, N] -> [B, nb]."""
+def bucket_sums(points, digits, c, out=None):
+    """Bucket sums of buckets 1..2^c-1 for digit rows [B, N] -> [B, nb],
+    into ``out`` if given."""
     dev = digits.device
     with Timer.stage("msm.sort_and_bounds", dev):
         args = bucket_inputs(points, digits)
     with Timer.stage("msm.h3_bucket_sums", dev):
-        if dev.type == "cpu":
-            return bucket_sums_plain(*args, (1 << c) - 1)
-        return launch_msm_bucket(*args, (1 << c) - 1)
+        if dev.type != "cpu":
+            return launch_msm_bucket(*args, (1 << c) - 1, out=out)
+        sums = bucket_sums_plain(*args, (1 << c) - 1)
+        if out is None:
+            return sums
+        for o, a in zip(out, sums):
+            o.copy_(a)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -313,27 +337,86 @@ def _pow2(x: int) -> int:
 
 
 def seglen_log2(nb: int) -> int:
-    """log2 of H4's segment length L: SEGLEN, less where nb is smaller, more
-    where LANES segments of SEGLEN do not cover nb."""
+    """log2 of the one-warp layout's segment length L: SEGLEN, less where nb
+    is smaller, more where LANES segments of SEGLEN do not cover nb."""
     return (max(min(SEGLEN, _pow2(nb)), _pow2(-(-nb // LANES)))).bit_length() - 1
 
 
 def _lanes_log2(nb: int, lg: int) -> int:
-    """log2 of H4's lanes per row: segments of 2^lg to cover nb buckets."""
+    """log2 of the one-warp layout's lanes per row: segments of 2^lg to
+    cover nb buckets."""
     ls = (_pow2(-(-nb >> lg)) if nb else 1).bit_length() - 1
     if ls > LANES.bit_length() - 1:
         raise ValueError(f"H4: {LANES} segments of 2^{lg} do not cover {nb} buckets")
     return ls
 
 
-def weighted_sums_plain(buckets, lg: int):
-    """Plain version of H4 with segments of 2^lg buckets: the lanes'
-    segment walks, the suffix scan, the doublings and the shuffle tree in
-    the kernel's order of additions, vectorized over rows and lanes."""
+def h4_layout(rows: int, nb: int) -> tuple:
+    """(lg, ls) of H4 for rows x nb buckets: segments of 2^lg buckets,
+    groups of 2^ls lanes. The one-warp layout (one group covers a row)
+    where its lanes fill FILL_WARPS warps; else the few-rows layout: the
+    largest lg from FEW_LG_MAX (below the one-warp layout's) down to
+    FEW_LG_MIN whose groups fill them (FEW_LG_MIN if none), each group as
+    many lanes as the row needs, at most LANES."""
+    lg = seglen_log2(nb)
+    ls = _lanes_log2(nb, lg)
+    if rows << ls >= FILL_WARPS * LANES or lg <= FEW_LG_MIN:
+        return lg, ls
+    for lg in range(min(FEW_LG_MAX, lg - 1), FEW_LG_MIN - 1, -1):
+        ls = min(LANES, _pow2(-(-nb >> lg))).bit_length() - 1
+        if rows * (-(-nb >> (lg + ls))) << ls >= FILL_WARPS * LANES:
+            break
+    return lg, ls
+
+
+def h4_levels(nb: int, lg: int, ls: int) -> list:
+    """H4's levels for segments of 2^lg buckets in groups of 2^ls lanes:
+    [(ls, groups a row, doublings)]. Level 0 walks the buckets; each
+    further level takes the groups below as its lanes (segments of 2^(dbl +
+    ls) buckets), up to LANES to a group, until a row has one group."""
+    if not (nb > 0 and 0 <= lg <= 24 and 0 <= ls <= LANES.bit_length() - 1):
+        raise ValueError(f"H4: no layout of {nb} buckets in segments of 2^{lg}, "
+                         f"groups of 2^{ls} lanes")
+    levels = [(ls, -(-nb >> (lg + ls)), lg)]
+    while levels[-1][1] > 1:
+        l, g, dbl = levels[-1]
+        ln = min(LANES, _pow2(g)).bit_length() - 1
+        levels.append((ln, -(-g >> ln), dbl + l))
+    return levels
+
+
+def _level_plain(run, tot, dbl: int):
+    """Plain version of one level's combine over groups of lanes [X, S]:
+    the suffix scan of run, 2^dbl U_s + tot_s, the tree. Returns the
+    groups' T [X] and R = U_0 [X]."""
+    S = run[0].shape[1]
+    acc = run
+    o = 1
+    while o < S:
+        head = CU.padd_plain(tuple(a[:, :S - o] for a in acc), tuple(a[:, o:] for a in acc))
+        acc = tuple(torch.cat((h, a[:, S - o:]), dim=1) for h, a in zip(head, acc))
+        o *= 2
+    r = tuple(a[:, 0] for a in acc)
+    acc = tuple(a[:, 1:] for a in acc)
+    for _ in range(dbl):
+        acc = CU.pdbl_plain(acc)
+    y = CU.padd_plain(acc, tuple(t[:, 1:] for t in tot))
+    acc = tuple(torch.cat((t[:, :1], v), dim=1) for t, v in zip(tot, y))
+    while o > 1:
+        o //= 2
+        acc = CU.padd_plain(tuple(a[:, :o] for a in acc), tuple(a[:, o:2 * o] for a in acc))
+    return tuple(a[:, 0] for a in acc), r
+
+
+def weighted_sums_plain(buckets, lg: int, ls: int):
+    """Plain version of H4 in the layout (lg, ls): the lanes' segment walks,
+    then each level's suffix scan, doublings and tree, in the kernel's order
+    of additions, vectorized over rows, groups and lanes."""
     bx = buckets[0]
     B, nb = bx.shape[0], bx.shape[1]
     dev = bx.device
-    S, L = 1 << _lanes_log2(nb, lg), 1 << lg
+    levels = h4_levels(nb, lg, ls)
+    S, L = levels[0][1] << ls, 1 << lg   # lanes a row at level 0
     s = torch.arange(S, device=dev)
     lo, hi = s * L + 1, torch.clamp(s * L + L, max=nb)
     run, tot = CU.identity((B, S), dev), CU.identity((B, S), dev)
@@ -349,44 +432,46 @@ def weighted_sums_plain(buckets, lg: int):
             t2 = CU.padd_plain(tuple(a[:, lanes] for a in tot), r2)
         for a, v in zip(run + tot, r2 + t2):
             a[:, lanes] = v
-    acc = run
-    o = 1
-    while o < S:
-        head = CU.padd_plain(tuple(a[:, :S - o] for a in acc), tuple(a[:, o:] for a in acc))
-        acc = tuple(torch.cat((h, a[:, S - o:]), dim=1) for h, a in zip(head, acc))
-        o *= 2
-    acc = tuple(a[:, 1:] for a in acc)
-    for _ in range(lg):
-        acc = CU.pdbl_plain(acc)
-    y = CU.padd_plain(acc, tuple(t[:, 1:] for t in tot))
-    acc = tuple(torch.cat((t[:, :1], v), dim=1) for t, v in zip(tot, y))
-    while o > 1:
-        o //= 2
-        acc = CU.padd_plain(tuple(a[:, :o] for a in acc), tuple(a[:, o:2 * o] for a in acc))
-    return tuple(a[:, 0] for a in acc)
+    for l, g, dbl in levels:
+        pad = (g << l) - run[0].shape[1]   # lanes past the level's inputs
+        if pad:
+            run, tot = (tuple(torch.cat((a, e), dim=1) for a, e in zip(p, CU.identity((B, pad), dev)))
+                        for p in (run, tot))
+        T, R = _level_plain(tuple(a.reshape(B * g, 1 << l, NUM_LIMBS) for a in run),
+                              tuple(a.reshape(B * g, 1 << l, NUM_LIMBS) for a in tot), dbl)
+        run, tot = (tuple(a.reshape(B, g, NUM_LIMBS) for a in p) for p in (R, T))
+    return tuple(a[:, 0] for a in tot)
 
 
-def launch_msm_weighted(buckets, lg: int):
-    """H4 on CUDA: buckets [B, nb] projective -> row sums [B]."""
+def launch_msm_weighted(buckets, lg: int, ls: int):
+    """H4 on CUDA: buckets [B, nb] projective -> row sums [B], in the
+    layout (lg, ls) (``h4_layout``); the levels after the first go through
+    scratch, one launch function call for all of them."""
     bx = buckets[0]
     B, nb = bx.shape[0], bx.shape[1]
     dev = bx.device
     with K.timed("msm_weighted", "weighted_sums", B, dev) as launch:
-        for c in buckets:
-            if c.dtype != torch.int32 or tuple(c.shape) != (B, nb, NUM_LIMBS):
-                raise ValueError(f"H4: expected int32 {(B, nb, NUM_LIMBS)}, got "
+        levels = h4_levels(nb, lg, ls)
+        need = sum(2 * B * g for _, g, _ in levels[:-1])
+        scratch = tuple(torch.empty((need, NUM_LIMBS), dtype=torch.int32, device=dev)
+                        for _ in range(3))
+        checks = [(f"buckets {k}", c, (B, nb, NUM_LIMBS)) for k, c in zip("xyz", buckets)] + \
+            [(f"scratch {k}", c, (need, NUM_LIMBS)) for k, c in zip("xyz", scratch)]
+        for name, c, shape in checks:
+            if c.dtype != torch.int32 or tuple(c.shape) != shape:
+                raise ValueError(f"H4 {name}: expected int32 {shape}, got "
                                  f"{c.dtype} {tuple(c.shape)}")
             if c.device != dev or dev.type != "cuda":
-                raise ValueError("H4: buckets must be on one CUDA device")
+                raise ValueError(f"H4 {name}: must be on the CUDA device {dev}")
             if not c.is_contiguous() or c.data_ptr() % 16:
-                raise ValueError("H4: buckets must be contiguous and 16-byte aligned")
-        ls = _lanes_log2(nb, lg)
+                raise ValueError(f"H4 {name}: must be contiguous and 16-byte aligned")
         out = tuple(torch.empty((B, NUM_LIMBS), dtype=torch.int32, device=dev) for _ in range(3))
         if B == 0:
             return out
         lib = K.lib("msm_weighted")
         rc = launch(lib.msm_weighted_launch, *(c.data_ptr() for c in buckets), nb, lg, ls, B,
-                    *(o.data_ptr() for o in out), K.stream(dev))
+                    *(c.data_ptr() for c in scratch), need, *(o.data_ptr() for o in out),
+                    K.stream(dev))
         K.count("msm_weighted")
     K.check(rc, "msm_weighted")
     return out
@@ -394,17 +479,35 @@ def launch_msm_weighted(buckets, lg: int):
 
 def weighted_sums(buckets, c: int):
     """Per-row sum_b b * B_b of bucket sums [B, 2^c - 1] -> projective [B]."""
-    lg = seglen_log2((1 << c) - 1)
+    lg, ls = h4_layout(buckets[0].shape[0], (1 << c) - 1)
     dev = buckets[0].device
     with Timer.stage("msm.h4_weighted_sums", dev):
         if dev.type == "cpu":
-            return weighted_sums_plain(buckets, lg)
-        return launch_msm_weighted(tuple(a.contiguous() for a in buckets), lg)
+            return weighted_sums_plain(buckets, lg, ls)
+        return launch_msm_weighted(tuple(a.contiguous() for a in buckets), lg, ls)
 
 
 def bucket_windows(points, digits, c: int):
     """Window sums for a batch of digit rows [B, N] -> projective [B]."""
     return weighted_sums(bucket_sums(points, digits, c), c)
+
+
+def window_sums(points, dig, c: int):
+    """Window sums of an MSM's digit rows [R, N] -> projective [R]. H3 takes
+    chunks of CHUNK_BUDGET // N rows; where the rows' bucket table fits
+    TABLE_BUDGET bytes, H3 writes each chunk into it and H4 runs once over
+    all R rows, else H4 runs on each chunk's buckets."""
+    R, n = dig.shape
+    nb = (1 << c) - 1
+    step = min(max(1, CHUNK_BUDGET // n), R)
+    if R * nb * 3 * NUM_LIMBS * 4 > TABLE_BUDGET:
+        parts = [bucket_windows(points, dig[s:s + step], c) for s in range(0, R, step)]
+        return tuple(torch.cat([p[i] for p in parts], dim=0) for i in range(3))
+    table = tuple(torch.empty((R, nb, NUM_LIMBS), dtype=torch.int32, device=dig.device)
+                  for _ in range(3))
+    for s in range(0, R, step):
+        bucket_sums(points, dig[s:s + step], c, out=tuple(t[s:s + step] for t in table))
+    return weighted_sums(table, c)
 
 
 # ---------------------------------------------------------------------------
@@ -421,13 +524,15 @@ def msm_ladder(points, scalars):
 def msm(points, scalars, c: int | None = None):
     """MSM driver. points: affine (x, y, inf) [N]; scalars [..., N, 8]
     canonical. Returns a projective point with batch shape scalars.shape[:-2].
-    The (window x row) digit rows are chunked to bound transients."""
+    The window is c, else ``SpartanConfig.msm_window`` of the default
+    config, else ``choose_window``; the (window x row) digit rows go to
+    ``window_sums``."""
     n = scalars.shape[-2]
     batch_shape = scalars.shape[:-2]
     if n <= LADDER_N:
         return msm_ladder(points, scalars)
     if c is None:
-        c = choose_window(n)
+        c = DEFAULT.msm_window or choose_window(n)
     B = 1
     for s in batch_shape:
         B *= s
@@ -435,11 +540,7 @@ def msm(points, scalars, c: int | None = None):
         digits = window_digits(scalars.reshape(B, n, NUM_LIMBS), c)   # [B, n, W]
         W = digits.shape[-1]
         dig = digits.permute(2, 0, 1).reshape(W * B, n)   # window-major rows
-    rows_per_call = min(max(1, CHUNK_BUDGET // n), W * B)
-    parts = [bucket_windows(points, dig[s:s + rows_per_call], c)
-             for s in range(0, W * B, rows_per_call)]
-    win = tuple(torch.cat([p[i] for p in parts], dim=0).reshape(W, B, NUM_LIMBS).flip(0)
-                for i in range(3))
+    win = tuple(a.reshape(W, B, NUM_LIMBS).flip(0) for a in window_sums(points, dig, c))
     with Timer.stage("msm.horner", scalars.device):
         acc = CU.horner(win, c)
     return tuple(a.reshape(*batch_shape, NUM_LIMBS) for a in acc)

@@ -1,7 +1,8 @@
 """Multi-rank Pippenger MSM: points sharded, window sums reduced by the curve law.
 
 Counterpart of ``spartan_tpu/parallel/msm_sharded.py``. Each rank runs the
-bucket method (H3 + H4) on its block of points with the same windows; the
+bucket method (H3 + H4, ``ops/msm.py`` ``window_sums``, as the single-device
+MSM does) on its block of points with the same windows; the
 [W] per-window projective partials (a few KB) are all-gathered, added across
 ranks with complete additions (``ops/msm.py`` ``reduce_points``) and
 combined by H2's Horner ladder, replicated on every rank. Group elements
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from spartan_tpu_torch.config import DEFAULT
 from spartan_tpu_torch.ops import curve as CU
 from spartan_tpu_torch.ops import msm as MSM
 from spartan_tpu_torch.ops.limbs import NUM_LIMBS
@@ -45,15 +47,11 @@ def msm_sharded(mesh: Mesh, points, scalars, c: int | None = None):
     [n_local, 8]. Returns the replicated projective point of the whole MSM."""
     n = scalars.shape[0]
     if c is None:
-        c = MSM.choose_window(n)
+        c = DEFAULT.msm_window or MSM.choose_window(n)
     digits = MSM.window_digits(scalars, c)                       # [n, W]
-    W = digits.shape[-1]
     dig = digits.t().contiguous()                                # [W, n]
     del digits
-    rows_per_call = min(max(1, MSM.CHUNK_BUDGET // max(n, 1)), W)
-    parts = [MSM.bucket_windows(points, dig[s:s + rows_per_call], c)
-             for s in range(0, W, rows_per_call)]
-    part = tuple(torch.cat([p[i] for p in parts], dim=0) for i in range(3))   # [W]
+    part = MSM.window_sums(points, dig, c)                       # [W]
     wins = MSM.reduce_points(tuple(all_gather(mesh, a) for a in part), axis=0)
     acc = CU.horner(tuple(w.flip(0).unsqueeze(1) for w in wins), c)           # [1]
     return tuple(a[0] for a in acc)

@@ -2,7 +2,7 @@
 
 The reference's Timer output is dead code behind an undeclared feature flag
 (reference src/timer.rs:12-32, SURVEY.md §5); here profiling is a
-runtime switch: Timer.enable(). Timers nest, print
+runtime switch: SPARTAN_TPU_PROFILE=1 or Timer.enable(). Timers nest, print
 on stop, and synchronise the CUDA device at start and stop (when CUDA is
 in use) so asynchronous kernels are attributed to the phase that queued
 them.
@@ -11,6 +11,7 @@ them.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
@@ -22,7 +23,7 @@ def _sync() -> None:
 
 
 class Timer:
-    _enabled = False
+    _enabled = os.environ.get("SPARTAN_TPU_PROFILE") == "1"
     _depth = 0
     _records: list | None = None  # (depth, label, seconds) when collecting
     _open: list = []              # running Timers, innermost last

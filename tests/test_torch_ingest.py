@@ -202,3 +202,22 @@ def test_saved_proofs_cross_verify(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["keyless_bench"] + args + ["--verify-only", pdir])
     JKB.main()
     assert _last_json(capsys.readouterr().out)["verified"]
+
+
+def test_profile_config_prints_phases(monkeypatch, capsys):
+    """SpartanConfig.profile defaults from SPARTAN_TPU_PROFILE == "1", as
+    in spartan_tpu, and makes keyless_bench.run turn on the Timer's
+    printing of each phase (spartan_tpu/io/keyless_bench.py:130-133)."""
+    from spartan_tpu_torch.config import SpartanConfig
+    from spartan_tpu_torch.utils.timer import Timer
+
+    monkeypatch.setenv("SPARTAN_TPU_PROFILE", "1")
+    assert SpartanConfig().profile
+    monkeypatch.setenv("SPARTAN_TPU_PROFILE", "0")
+    assert not SpartanConfig().profile
+    monkeypatch.setattr(Timer, "_enabled", False)
+    KB.run(*KB.load_circom(R1CS, WTNS), config=SpartanConfig(pcs="hyrax", profile=True),
+           device="cpu", tape_seed=bytes([1]) * 32)
+    assert Timer._enabled
+    out = capsys.readouterr().out
+    assert "* R1CSProof::prove" in out

@@ -19,6 +19,19 @@ from spartan_tpu_torch.ops import fields_host as fh
 from spartan_tpu_torch.ops import msm as M
 
 RNG = np.random.default_rng(11)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the plain versions are many
+    small tensor ops, which a parallel test run slows by tens of times when
+    each op waits for threads the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BASE = [CH.scalar_mul(int(s), CH.GEN) for s in RNG.integers(1, 1 << 60, size=24)]
 
 
@@ -89,7 +102,8 @@ def test_weighted_segments(seglen):
     bpts = [BASE[i % len(BASE)] if i % 5 else None for i in range(2 * nb)]
     with DEV.use("cpu"):
         buckets = tuple(a.reshape(2, nb, 8) for a in CU.encode_points(bpts))
-    got = CU.decode_points(M.weighted_sums_plain(buckets, seglen.bit_length() - 1))
+    lg = seglen.bit_length() - 1
+    got = CU.decode_points(M.weighted_sums_plain(buckets, lg, M._lanes_log2(nb, lg)))
     for r in range(2):
         assert got[r] == CH.msm(list(range(1, nb + 1)), bpts[r * nb:(r + 1) * nb])
 
@@ -97,9 +111,128 @@ def test_weighted_segments(seglen):
 @pytest.mark.parametrize("nb,lg,ls", [(15, 4, 0), (32, 5, 0), (33, 6, 0), (127, 6, 1),
                                       (1023, 6, 4), (2047, 6, 5), (4095, 7, 5), (65535, 11, 5)])
 def test_h4_layout(nb, lg, ls):
-    """Segments of 64 buckets where nb allows, at most a warp per row."""
+    """The one-warp layout: segments of 64 buckets where nb allows, at most
+    a warp per row, one level. h4_layout keeps it where the rows' lanes
+    fill FILL_WARPS warps, and not for one row of more than 2^FEW_LG_MIN
+    buckets."""
     assert M.seglen_log2(nb) == lg and M._lanes_log2(nb, lg) == ls
     assert (1 << (lg + ls)) >= nb
+    rows = -(-M.FILL_WARPS * M.LANES >> ls)
+    assert M.h4_layout(rows, nb) == (lg, ls)
+    assert M.h4_levels(nb, lg, ls) == [(ls, 1, lg)]
+    if lg > M.FEW_LG_MIN:
+        assert M.h4_layout(rows - 1, nb) != (lg, ls)
+        assert M.h4_layout(1, nb)[0] < lg
+
+
+@pytest.mark.parametrize("rows,nb,lg,ls,levels", [
+    # the KZG prove's MSM of 16 windows (one launch) and the smoke's pass of 2
+    (16, 65535, 5, 5, [(5, 64, 5), (5, 2, 10), (1, 1, 15)]),
+    (2, 65535, 3, 5, [(5, 256, 3), (5, 8, 8), (3, 1, 13)]),
+    # a one-row MSM at c = 10: one group at level 1
+    (26, 1023, 3, 5, [(5, 4, 3), (2, 1, 8)]),
+    # few buckets: one group of fewer lanes
+    (51, 31, 3, 2, [(2, 1, 3)])])
+def test_h4_layout_few_rows(rows, nb, lg, ls, levels):
+    """Rows that do not fill the card take groups of a warp (fewer lanes
+    where the row needs fewer) of the largest segment that fills it, else
+    of 2^FEW_LG_MIN; further levels combine a row's groups."""
+    assert M.h4_layout(rows, nb) == (lg, ls)
+    assert M.h4_levels(nb, lg, ls) == levels
+
+
+@pytest.mark.parametrize("nb,lg,ls", [(0, 3, 5), (255, -1, 5), (255, 25, 0), (255, 3, 6),
+                                      (255, 3, -1)])
+def test_h4_levels_refuse_what_the_kernel_refuses(nb, lg, ls):
+    """h4_levels (which sizes the wrapper's scratch) refuses the layouts
+    msm_weighted_launch refuses: nb < 1, lg outside 0..24, ls outside 0..5."""
+    with pytest.raises(ValueError):
+        M.h4_levels(nb, lg, ls)
+
+
+def bucket_table(rows, nb, zero_row=False):
+    """rows x nb bucket points: generators with every fifth bucket the
+    identity, the last row all identity if zero_row."""
+    bpts = [BASE[(7 * i) % len(BASE)] if i % 5 else None for i in range(rows * nb)]
+    if zero_row:
+        bpts[(rows - 1) * nb:] = [None] * nb
+    with DEV.use("cpu"):
+        return bpts, tuple(a.reshape(rows, nb, 8) for a in CU.encode_points(bpts))
+
+
+@pytest.mark.parametrize("c", [4, 5, 6, 7, 8])
+def test_weighted_sums_few_rows(c, monkeypatch):
+    """The few-rows layout (forced at small nb with segments of 1-2
+    buckets: up to 8 groups a row, so a second level) for 1, 2 and 3 rows
+    equals sum_b b * B_b by host bigints, identity buckets and an all-zero
+    row included."""
+    monkeypatch.setattr(M, "FEW_LG_MAX", 1)
+    monkeypatch.setattr(M, "FEW_LG_MIN", 0)
+    nb = (1 << c) - 1
+    for rows in (1, 2, 3):
+        lg, ls = M.h4_layout(rows, nb)
+        assert lg == 0 and len(M.h4_levels(nb, lg, ls)) == (2 if c > 5 else 1)
+        bpts, buckets = bucket_table(rows, nb, zero_row=rows == 3)
+        got = CU.decode_points(M.weighted_sums(buckets, c))
+        for r in range(rows):
+            want = None
+            for b, p in enumerate(bpts[r * nb:(r + 1) * nb], start=1):
+                if p is not None:
+                    want = CH.add(want, CH.scalar_mul(b, p))
+            assert got[r] == want
+        if rows == 3:
+            assert got[2] is None
+
+
+def test_weighted_sums_recursion():
+    """More groups a row than one warp combines: 2047 buckets in segments of
+    one are 64 groups, combined by a level of 2 groups and a last of 2
+    lanes (10 doublings)."""
+    nb = 2047
+    assert M.h4_levels(nb, 0, 5) == [(5, 64, 0), (5, 2, 5), (1, 1, 10)]
+    bpts, buckets = bucket_table(1, nb)
+    got = CU.decode_points(M.weighted_sums_plain(buckets, 0, 5))
+    assert got == [CH.msm(list(range(1, nb + 1)), bpts)]
+
+
+@pytest.mark.parametrize("c", [10, 12])
+def test_one_row_msm_one_h4_call(c, monkeypatch):
+    """The one-launch helper msm() and msm_sharded call, on digit rows of a
+    one-row MSM of 2^10 points (its lowest window and its top one, to keep
+    the plain versions' work small): H3 fills the bucket table row by
+    row (CHUNK_BUDGET lowered to one row), H4 runs once over all the rows,
+    and each window sum equals sum_i digit_i * P_i by the host C MSM."""
+    n = 1 << 10
+    monkeypatch.setattr(M, "CHUNK_BUDGET", n)
+    calls = []
+    orig = M.weighted_sums
+    monkeypatch.setattr(M, "weighted_sums", lambda b, cc: calls.append(b[0].shape) or orig(b, cc))
+    pts = points(n, inf=(3,))
+    xs = scalars(n, c, zeros=(0, 9))
+    digits = M.window_digits(F.encode_canonical(xs, "cpu"), c)   # [n, W]
+    dig = digits.t()[[0, -1]].contiguous()
+    got = CU.decode_points(M.window_sums(affine(pts), dig, c))
+    assert calls == [(2, (1 << c) - 1, 8)]
+    assert got == [CH.msm([int(d) for d in row], pts) for row in dig.tolist()]
+
+
+def test_msm_window_config(monkeypatch):
+    """SpartanConfig.msm_window of the default config fixes the window of
+    every MSM above the ladder; the value is the same affine point."""
+    from spartan_tpu_torch import config
+
+    n = 70
+    pts = points(n)
+    xs = scalars(n, 8, zeros=(4,))
+    sc = F.encode_canonical(xs, "cpu")
+    seen = []
+    orig = M.window_sums
+    monkeypatch.setattr(M, "window_sums", lambda p, d, c: seen.append(c) or orig(p, d, c))
+    auto = decode1(M.msm(affine(pts), sc))
+    monkeypatch.setattr(config.DEFAULT, "msm_window", 8)
+    fixed = decode1(M.msm(affine(pts), sc))
+    assert seen == [M.choose_window(n), 8] and M.choose_window(n) != 8
+    assert auto == fixed == CH.msm(xs, pts)
 
 
 def test_infinity_points_get_digit_zero():
@@ -329,10 +462,30 @@ def test_h3_h4_kernels_match_plain(cuda):
     assert all(torch.equal(a, b) for a, b in zip(k3, M.bucket_sums_plain(*args, 127,
                                                                          walk=walk_plain)))
     assert torch.equal(walk, walk_plain) and int(walk.max()) == M.TILE - 1
-    lg = M.seglen_log2(127)
-    k4 = M.launch_msm_weighted(k3, lg)
-    assert all(torch.equal(a, b) for a, b in zip(k4, M.weighted_sums_plain(k3, lg)))
-    assert CU.decode_points(k4)[6] == CH.msm([77] * 300, pts)
+    for lg, ls in (M.h4_layout(8, 127), (M.seglen_log2(127), M._lanes_log2(127, 6))):
+        k4 = M.launch_msm_weighted(k3, lg, ls)
+        assert all(torch.equal(a, b) for a, b in zip(k4, M.weighted_sums_plain(k3, lg, ls)))
+        assert CU.decode_points(k4)[6] == CH.msm([77] * 300, pts)
+    # one row of 2^16 - 1 buckets (a KZG window): the few-rows layout's
+    # three levels
+    nb = (1 << 16) - 1
+    bpts, table = bucket_table(1, nb)
+    table = tuple(a.to(cuda) for a in table)
+    lg, ls = M.h4_layout(1, nb)
+    assert len(M.h4_levels(nb, lg, ls)) == 3
+    k4 = M.launch_msm_weighted(table, lg, ls)
+    assert all(torch.equal(a, b) for a, b in zip(k4, M.weighted_sums_plain(table, lg, ls)))
+    assert CU.decode_points(k4)[0] == CH.msm(list(range(1, nb + 1)), bpts)
+    # the launch function refuses too little scratch for the levels, and
+    # groups of more than a warp, before it launches anything
+    from spartan_tpu_torch.ops import kernels as K
+
+    need = sum(2 * g for _, g, _ in M.h4_levels(nb, lg, ls)[:-1])
+    ptrs = [a.data_ptr() for a in table]
+    for l, scratch in ((ls, need - 1), (6, need)):
+        assert K.lib("msm_weighted").msm_weighted_launch(
+            *ptrs, nb, lg, l, 1, *ptrs, scratch, *(a.data_ptr() for a in k4),
+            K.stream(cuda)) != 0
     xs = scalars(300, 9)
     got = CU.decode_points(tuple(a.unsqueeze(0) for a in M.msm(aff, F.encode_canonical(xs, cuda))))
     assert got[0] == CH.msm(xs, pts)

@@ -31,6 +31,7 @@ TREE_LEAVES = 256
 ROWS_L, ROWS_R = 6, 8  # commit_rows: L not a multiple of D
 KZG_N = 64
 MSM_N = 32
+ONE_ROW_MSM_N, ONE_ROW_C = 1 << 10, 7   # the world of 2's one-launch msm_sharded
 SNARK_LOG2 = 4
 NIZK_LOG2 = 5
 LABEL = b"torch_mesh"
@@ -186,7 +187,35 @@ def _nizk_in_rank(mesh) -> dict:
     proof = NIZK.prove(inst, vars_, inputs, gens, Transcript(LABEL),
                        RandomTape(b"proof", seed=TAPE_SEED), mesh=mesh)
     proof.verify(inst, inputs, Transcript(LABEL), gens)
-    return {"proof": serialize(proof), "engaged": dict(seen.n), "size": mesh.size}
+    return {"proof": serialize(proof), "engaged": dict(seen.n), "size": mesh.size,
+            "msm": _one_row_msm_in_rank(mesh)}
+
+
+def _one_row_msm_in_rank(mesh) -> tuple:
+    """msm_sharded of ONE_ROW_MSM_N points at c = ONE_ROW_C with
+    CHUNK_BUDGET lowered to 8 digit rows: H3 fills the rank's bucket table
+    in chunks, H4 runs once. Returns the affine sum, the points and the
+    bucket tables H4 was given."""
+    from spartan_tpu_torch.ops import curve as CU
+    from spartan_tpu_torch.ops import curve_host as CH
+    from spartan_tpu_torch.ops import msm as M
+    from spartan_tpu_torch.parallel import msm_sharded, shard_table
+
+    rng = random.Random(62)
+    pts = [CH.scalar_mul(rng.randrange(1, 1 << 50), CH.GEN) for _ in range(32)]
+    pts = [pts[i % 32] for i in range(ONE_ROW_MSM_N)]
+    sc = F.encode_canonical(_ints(63, ONE_ROW_MSM_N), mesh.device)
+    enc = CU.encode_points_affine(pts, mesh.device)
+    saved, orig = M.CHUNK_BUDGET, M.weighted_sums
+    tables = []
+    M.CHUNK_BUDGET = 8 * ONE_ROW_MSM_N // mesh.size
+    M.weighted_sums = lambda b, c: tables.append(tuple(b[0].shape)) or orig(b, c)
+    try:
+        acc = msm_sharded(mesh, tuple(shard_table(mesh, a) for a in enc), shard_table(mesh, sc),
+                          c=ONE_ROW_C)
+    finally:
+        M.CHUNK_BUDGET, M.weighted_sums = saved, orig
+    return CU.decode_points(tuple(a.unsqueeze(0) for a in acc))[0], pts, tables
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +405,20 @@ def test_sharded_nizk_bit_identical(worlds):
     assert one[0]["size"] == 1 and one[0]["proof"] == ref
     assert not one[0]["engaged"]
     deserialize(NIZK, two[1]["proof"]).verify(inst, inputs, Transcript(LABEL), gens)
+
+
+def test_sharded_one_row_msm_one_h4_call(worlds):
+    """In the worlds of 2 and 1, msm_sharded of 2^10 points: each rank's
+    windows go to H4 in one call (its [W, 127] bucket table, filled by H3
+    in chunks of 8 rows), and the replicated sum equals the host C MSM."""
+    from spartan_tpu_torch.ops import curve_host as CH
+
+    W = -(-254 // ONE_ROW_C)
+    for world in (worlds[2].result(), worlds[1].result()):
+        for got in world:
+            acc, pts, tables = got["msm"]
+            assert tables == [(W, (1 << ONE_ROW_C) - 1, 8)]
+            assert acc == CH.msm(_ints(63, ONE_ROW_MSM_N), pts)
 
 
 

@@ -114,6 +114,39 @@ def test_fused_proof_bytes_match_jax(snarks, monkeypatch):
     assert serialize(proof) == serialize(snarks["proof"]) == jax_serialize(snarks["jproof"])
 
 
+def test_msm_window_proof_bytes_match_jax(snarks, monkeypatch):
+    """Proved again with ``SpartanConfig.msm_window`` = 8 in the default
+    config, the port's proof has the auto-window proof's bytes, which are
+    spartan_tpu's; under Hyrax spartan_tpu proves again with its default
+    config's msm_window = 8 too, to the same bytes. (Under KZG its SRS MSM
+    would take the bucket path at c = 8, a new XLA compile, so it does
+    not.) At this size every MSM of the port, and of spartan_tpu under
+    Hyrax, is below its bucket path (the host C MSM or the ladder), so the
+    window reaches none of them; tests/test_torch_msm.py's
+    test_msm_window_config holds a bucket-path MSM at the fixed window to
+    the auto one."""
+    from spartan_tpu import config as jconfig
+    from spartan_tpu import snark as JS
+    from spartan_tpu.utils.random_tape import RandomTape as JRandomTape
+    from spartan_tpu.utils.serialization import serialize as jax_serialize
+    from spartan_tpu.utils.transcript import Transcript as JTranscript
+    from spartan_tpu_torch import config
+
+    monkeypatch.setattr(config.DEFAULT, "msm_window", 8)
+    monkeypatch.setattr(jconfig.DEFAULT, "msm_window", 8)
+    monkeypatch.setattr(HP, "HOST_N", 2)
+    proof = SNARK.prove(snarks["inst"], snarks["comm"], snarks["decomm"], snarks["vars"],
+                        snarks["inputs"], snarks["gens"], Transcript(LABEL),
+                        RandomTape(b"snark_proof", seed=TAPE_SEED))
+    assert serialize(proof) == jax_serialize(snarks["jproof"])
+    if snarks["pcs"] == "hyrax":
+        jproof = JS.SNARK.prove(snarks["jinst"], snarks["jcomm"], snarks["jdecomm"],
+                                JS.Assignment(list(snarks["vars"].assignment)),
+                                snarks["jinputs"], snarks["jgens"], JTranscript(LABEL),
+                                JRandomTape(b"snark_proof", seed=TAPE_SEED))
+        assert jax_serialize(jproof) == serialize(proof)
+
+
 def test_jax_verifier_accepts_port_proof(snarks):
     from spartan_tpu import snark as JS
     from spartan_tpu.core.r1cs import R1CSCommitment as JComm

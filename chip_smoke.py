@@ -56,7 +56,22 @@ Phases, each printing one JSON line (``"phase": ...``):
             (``sumcheck_fused.FUSED = False``: no T1 or T2 launch) and on
             the fused path again, whose proofs must equal the first, with
             the three proves' times and ``product_layer_proof``;
-7. snark_kzg the same instance with the derefs committed by KZG
+7. api      the JAX package's public API through ``spartan_tpu_torch``'s
+            exports, on the snark phase's instance: A, B, C rebuilt from
+            their ``SparseMatEntry`` lists (3,145,728 entries in A) with
+            the original's arrays and shape digest; ``get_num_*``;
+            ``compute_eval_table_sparse`` of A from host lists equal to the
+            device table and, on 4,096 columns, to a host bigint sum;
+            ``EqPolynomial(r).evals()`` at ell = 20 equal to the host table
+            (both launching H1); a SNARK with gens sized by the ``M`` views
+            and VarsAssignment / InputsAssignment, proved with the snark
+            phase's transcript and tape: the same commitment and proof
+            bytes, verified, every kernel launched; and
+            ``MultiCommitGens(4096, secure=True)`` on the card: points
+            unlike the default derivation's, read back from the cache, and
+            a commit through the card's MSM (H3, H4) equal to the host C
+            MSM;
+8. snark_kzg the same instance with the derefs committed by KZG
             (``pcs="kzg"``): the SRS of 2^25 + 2 points generated on the
             card (``srs_s`` and its phases apart from ``gens_s``), encode,
             prove (counts zeroed just before, read just after; all ten
@@ -69,7 +84,7 @@ Phases, each printing one JSON line (``"phase": ...``):
             c = 16) beside their bounds, H4 on one MSM's whole table (16 x
             65,535) against its plain version, and that MSM of 2^25 points
             at c = 14, 15, 16 (``SpartanConfig.msm_window``) in 3 turns;
-8. sharded  the snark phase's instance (saved to build/smoke_sharded, not
+9. sharded  the snark phase's instance (saved to build/smoke_sharded, not
             built again) proved by a world of 2 ranks that share the one
             card (``parallel/``; gloo, whose collectives the ranks stage
             through the host: NCCL refuses two ranks on one card), under
@@ -90,12 +105,12 @@ Phases, each printing one JSON line (``"phase": ...``):
             a world of 1 on NCCL (the only NCCL world one card allows):
             the field psum, the table gather and the MSM window gather on
             device tensors held to their local results;
-9. cross    with the host-path thresholds (and the fused tail's entry size)
+10. cross   with the host-path thresholds (and the fused tail's entry size)
             lowered so the device paths run, the NIZK at 2^10 and the SNARK
             at 2^8 under Hyrax and under KZG made on the card, on the fused
             and on the per-round path, equal the CPU ones, and the card's
             runs launched the kernels, the CPU runs none;
-10. ingest  tests/fixtures/multiplier2 through ``load_circom`` and
+11. ingest  tests/fixtures/multiplier2 through ``load_circom`` and
             ``keyless_bench.run`` on the card and on the CPU under either
             PCS: equal proofs; the C parser's matrices equal the Python
             parser's.
@@ -376,6 +391,8 @@ def main(argv) -> int:
         report[name]["launches"] = n
         report[name]["prove_device_ms"] = totals[name]["device_ms"]
     del gens
+    for name, n in run_api(torch, data, refs["hyrax"], counts, smi).items():
+        report[name]["api_prove_launches"] = n
     counts, totals, gens, refs["kzg"] = run_snark(torch, data, SNARK_LOG2, "kzg")
     for name, n in counts.items():
         report[name]["kzg_prove_launches"] = n
@@ -1493,6 +1510,223 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
            "prove_peak_device_bytes": peak, "s2_max_entries": seen.s2_max_entries,
            "srs_path": config.srs_path}
     return counts, totals, gens, ref
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's public API, through the port's exports
+# ---------------------------------------------------------------------------
+
+API_EVAL_COLS = 4096   # columns of the eval table held to a host bigint sum
+API_GENS_N = 1 << 12   # secure generators committed through the card's MSM
+
+
+def run_api(torch, data, ref: dict, snark_counts: dict, smi: str) -> dict:
+    """The JAX package's public API at 2^20, through ``spartan_tpu_torch``'s
+    exports only (the references use the modules), on the snark phase's
+    instance ``data``:
+
+    1. A, B, C rebuilt from their ``SparseMatEntry`` lists (``list(X.M)``):
+       equal arrays, ``num_entries()``, a shape holding them with the
+       original's digest and ``get_num_*``;
+    2. ``compute_eval_table_sparse`` of A (host lists in and out) equal to
+       the decoded device table and, on API_EVAL_COLS sampled columns, to
+       a host bigint sum, with H1 launched;
+    3. ``EqPolynomial(r).evals()`` at ell = 20 equal to the host table,
+       with H1 launched;
+    4. SNARKGens sized by the ``M`` views, encode, prove and verify of the
+       rebuilt instance with VarsAssignment / InputsAssignment: the snark
+       phase's commitment and proof bytes (``ref``), every kernel launched
+       (counts zeroed just before the prove, read just after; reported
+       beside the snark phase's first prove's, ``snark_counts``);
+    5. MultiCommitGens(API_GENS_N, secure=True) on the card, in a cache
+       directory of its own: points unlike the default derivation's, the
+       second construction read from the cache, and a commit of a random
+       vector through the card's MSM (H3, H4) equal to the host C MSM.
+
+    Returns the prove's launch counts."""
+    import random
+
+    import numpy as np
+
+    import spartan_tpu_torch as S
+    from spartan_tpu_torch.core import commitments as CM
+    from spartan_tpu_torch.core import hostpath as HP
+    from spartan_tpu_torch.ops import curve as CU
+    from spartan_tpu_torch.ops import curve_host as CH
+    from spartan_tpu_torch.ops import field as F
+    from spartan_tpu_torch.ops import kernels as K
+    from spartan_tpu_torch.ops.fields_host import FR_MOD
+    from spartan_tpu_torch.utils.cachedir import subdir
+    from spartan_tpu_torch.utils.serialization import serialize
+
+    inst, vars_, inputs, nnz, _ = data
+    shape = inst.inst
+    n, num_inputs = shape.num_cons, shape.num_inputs
+    nx, ny = shape.A.num_vars_x, shape.A.num_vars_y
+    dev = torch.device("cuda")
+    rng = random.Random(20)
+    seconds, checks = {}, {}
+    t0 = time.perf_counter()
+
+    # 1. the matrices from their entries
+    t = time.perf_counter()
+    mats = []
+    for X in (shape.A, shape.B, shape.C):
+        entries = list(X.M)
+        if len(entries) != X.num_entries() or not isinstance(entries[0], S.SparseMatEntry):
+            raise AssertionError("api: the M view's entries")
+        M = S.SparseMatPolynomial(nx, ny, entries)
+        del entries
+        if not (np.array_equal(M.rows, X.rows) and np.array_equal(M.cols, X.cols)
+                and M.vals == X.vals and M.num_entries() == X.num_entries()):
+            raise AssertionError("api: a matrix rebuilt from its entries differs")
+        mats.append(M)
+    seconds["entries_s"] = time.perf_counter() - t
+    checks["entries"] = [M.num_entries() for M in mats]
+    if checks["entries"][0] != 3 * n:
+        raise AssertionError(f"api: A has {checks['entries'][0]} entries, not {3 * n}")
+    t = time.perf_counter()
+    rebuilt = S.R1CSShape(n, n, num_inputs, [], [], [])
+    rebuilt.A, rebuilt.B, rebuilt.C = mats
+    inst2 = S.Instance(rebuilt)
+    seconds["digest_s"] = time.perf_counter() - t
+    checks["digest_equal"] = inst2.digest == inst.digest
+    checks["get_num"] = [rebuilt.get_num_cons(), rebuilt.get_num_vars(),
+                         rebuilt.get_num_inputs()]
+    if not checks["digest_equal"] or checks["get_num"] != [n, n, num_inputs]:
+        raise AssertionError(f"api: the rebuilt shape: {checks}")
+
+    # 2. the eval table from host lists, on the card
+    evals = [rng.randrange(FR_MOD) for _ in range(n)]
+    A = mats[0]
+    K.reset_counts()
+    t = time.perf_counter()
+    table = A.compute_eval_table_sparse(evals, n, 2 * n)
+    seconds["eval_table_s"] = time.perf_counter() - t
+    h1 = K.counts()["field_ew"]
+    device_table = F.decode_fr(shape.A.compute_eval_table_sparse_device(
+        F.encode_fr(evals, device=dev), 2 * n))
+    cols = rng.sample(range(2 * n), API_EVAL_COLS)
+    want = dict.fromkeys(cols, 0)
+    for i in np.nonzero(np.isin(A.cols, cols))[0].tolist():
+        c = int(A.cols[i])
+        want[c] = (want[c] + evals[int(A.rows[i])] * A.vals[i]) % FR_MOD
+    checks["eval_table"] = {"equal_to_device": table == device_table,
+                            "equal_to_host_sum": all(table[c] == want[c] for c in cols),
+                            "columns": API_EVAL_COLS, "h1_launches": h1}
+    if not (table == device_table and checks["eval_table"]["equal_to_host_sum"] and h1 > 0):
+        raise AssertionError(f"api: compute_eval_table_sparse: {checks['eval_table']}")
+    del table, device_table, evals
+
+    # 3. the eq table from host ints, on the card
+    r = [rng.randrange(FR_MOD) for _ in range(SNARK_LOG2)]
+    K.reset_counts()
+    t = time.perf_counter()
+    eq = S.EqPolynomial(r).evals()
+    seconds["eq_evals_s"] = time.perf_counter() - t
+    h1 = K.counts()["field_ew"]
+    checks["eq_evals"] = {"ell": SNARK_LOG2, "equal_to_host": eq == HP.eq_evals(r),
+                          "h1_launches": h1}
+    if not (checks["eq_evals"]["equal_to_host"] and h1 > 0):
+        raise AssertionError(f"api: EqPolynomial.evals: {checks['eq_evals']}")
+    del eq
+
+    # 4. a SNARK through the exported names
+    t = time.perf_counter()
+    max_nnz = max(len(inst2.inst.A.M), len(inst2.inst.B.M), len(inst2.inst.C.M))
+    gens = S.SNARKGens(n, n, num_inputs, max_nnz)
+    torch.cuda.synchronize()
+    seconds["gens_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    comm, decomm = S.SNARK.encode(inst2, gens)
+    torch.cuda.synchronize()
+    seconds["encode_s"] = time.perf_counter() - t
+    vars2 = S.VarsAssignment(vars_.assignment)
+    inputs2 = S.InputsAssignment(inputs.assignment)
+    K.reset_counts()
+    t = time.perf_counter()
+    proof = S.SNARK.prove(inst2, comm, decomm, vars2, inputs2, gens,
+                          S.Transcript(b"chip_smoke"),
+                          S.RandomTape(b"chip_smoke", seed=bytes([5]) * 32))
+    torch.cuda.synchronize()
+    seconds["prove_s"] = time.perf_counter() - t
+    counts = K.counts()
+    t = time.perf_counter()
+    proof.verify(comm, inputs2, S.Transcript(b"chip_smoke"), gens)
+    seconds["verify_s"] = time.perf_counter() - t
+    raw = serialize(proof)
+    checks["snark"] = {"max_nnz": max_nnz, "verified": True,
+                       "commitment_equal": serialize(comm) == ref["comm"],
+                       "proof_sha256": hashlib.sha256(raw).hexdigest(),
+                       "snark_phase_sha256": hashlib.sha256(ref["proof"]).hexdigest(),
+                       "launches": counts,
+                       "launches_equal_snark_phase": counts == snark_counts}
+    missing = [k for k, v in counts.items() if v <= 0]
+    if raw != ref["proof"] or not checks["snark"]["commitment_equal"] or missing:
+        raise AssertionError(f"api: the SNARK through the exports: {checks['snark']}, "
+                             f"kernels not launched {missing}")
+    del proof, comm, decomm, gens, inst2, rebuilt, mats, A
+    torch.cuda.empty_cache()
+
+    # 5. secure generators, in a cache directory of their own
+    import shutil
+
+    label = b"chip_smoke secure"
+    cache = subdir("cache", "smoke_secure_gens")
+    shutil.rmtree(cache)
+    os.makedirs(cache)
+    derived = []
+    saved_dir, saved_derive = CM._gens_cache_dir, CM.MultiCommitGens.__dict__["_derive_secure"]
+
+    def derive(lbl, count):
+        derived.append(count)
+        return saved_derive.__func__(lbl, count)
+
+    CM._gens_cache_dir = lambda: cache
+    CM.MultiCommitGens._derive_secure = staticmethod(derive)
+    try:
+        t = time.perf_counter()
+        secure = S.MultiCommitGens(API_GENS_N, label, secure=True)
+        torch.cuda.synchronize()
+        seconds["secure_gens_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        again = S.MultiCommitGens(API_GENS_N, label, secure=True)
+        torch.cuda.synchronize()
+        seconds["secure_gens_cached_s"] = time.perf_counter() - t
+        default = S.MultiCommitGens(API_GENS_N, label)
+    finally:
+        CM._gens_cache_dir = saved_dir
+        CM.MultiCommitGens._derive_secure = saved_derive
+    same_again = all(torch.equal(a, b) for a, b in zip(secure.G + secure.h, again.G + again.h))
+    unlike = bool((secure.G[0] != default.G[0]).any(dim=1).all()) and \
+        not torch.equal(secure.h[0], default.h[0])
+    values = [rng.randrange(FR_MOD) for _ in range(API_GENS_N)]
+    blind = rng.randrange(FR_MOD)
+    K.reset_counts()
+    got, msm_ms = cuda_once(torch, lambda: CM.commit_device(
+        F.encode_fr(values, device=dev), F.encode_fr([blind], device=dev)[0], secure))
+    msm_counts = K.counts()
+    got = CU.decode_points(tuple(a.unsqueeze(0) for a in got))[0]
+    if CH._native() is None:
+        raise AssertionError("api: the host C MSM (native/g1_host.c) is not built")
+    Gs, h = secure.host_points()
+    t = time.perf_counter()
+    want_pt = CH.msm(values + [blind], Gs + [h])
+    seconds["host_c_msm_s"] = time.perf_counter() - t
+    checks["secure_gens"] = {
+        "n": API_GENS_N, "derivations": derived, "cache_files": len(os.listdir(cache)),
+        "second_read_from_cache": derived == [API_GENS_N + 1] and same_again,
+        "unlike_default": unlike, "commit_equal_to_host_c_msm": got == want_pt,
+        "msm_ms": msm_ms, "h3_launches": msm_counts["msm_bucket"],
+        "h4_launches": msm_counts["msm_weighted"]}
+    if not (checks["secure_gens"]["second_read_from_cache"] and unlike and got == want_pt
+            and msm_counts["msm_bucket"] > 0 and msm_counts["msm_weighted"] > 0):
+        raise AssertionError(f"api: secure generators: {checks['secure_gens']}")
+    shutil.rmtree(cache)
+
+    emit({"phase": "api", "log2": SNARK_LOG2, "nvidia_smi": smi,
+          "seconds": {**seconds, "total_s": time.perf_counter() - t0}, "checks": checks})
+    return counts
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@ commitments.rs):
 - ``MultiCommitGens``: generators derived deterministically by a Shake256
   XOF over a label (commitments.rs:31-62), each 64-byte read mapped to a
   point exactly like the reference's simplified hash-to-group
-  (group.rs:110-132, fallback quirks included), kept as affine tensors on
-  the prover's device, with the tables cached on disk under
-  ``build/cache/gens``;
+  (group.rs:110-132, fallback quirks included) or, with ``secure=True``,
+  by x-coordinate rejection sampling (no discrete log known), kept as
+  affine tensors on the prover's device, with the tables cached on disk
+  under ``build/cache/gens``;
 - ``commit`` / ``commit_rows``: (n+1)-point MSMs; the row-batched form is
   the Hyrax matrix commit (hyrax.rs:253-267) as one batched MSM.
 """
@@ -131,11 +132,16 @@ class MultiCommitGens:
     ``G`` is an affine (x, y, inf) tuple of [n] tensors and ``h`` one
     affine point (x, y, inf) of [8]/[] tensors."""
 
-    def __init__(self, n: int, label: bytes | None = None, _from=None, device=None):
-        """Generators reproduce the reference's simplified scalar*G
-        hash-to-group byte-for-byte (group.rs:110-132), which transcript
-        parity with the reference requires (their dlogs are public, as in
-        the reference)."""
+    def __init__(self, n: int, label: bytes | None = None, _from=None,
+                 secure: bool = False, device=None):
+        """By default the generators reproduce the reference's simplified
+        scalar*G hash-to-group byte-for-byte (group.rs:110-132), which
+        transcript parity with the reference requires (their dlogs are
+        public, as in the reference, so the commitments do not bind).
+        ``secure=True`` derives them by x-coordinate rejection sampling
+        (``curve_host.from_uniform_bytes_secure``): no dlog is known and
+        the commitments bind. That derivation is host Python (about two
+        square roots in Fq a point), cached on disk like the default one."""
         self.n = n
         if _from is not None:
             self.G, self.h = _from
@@ -143,14 +149,26 @@ class MultiCommitGens:
             return
         assert label is not None
         self.device = DEV.current() if device is None else torch.device(device)
-        pts = self._derive_cached(label, n, self.device)
+        pts = self._derive_cached(label, n, self.device, secure)
         self.G = tuple(a[:n] for a in pts)
         self.h = tuple(a[n] for a in pts)
 
     @staticmethod
-    def _derive_cached(label: bytes, n: int, device):
+    def _derive_secure(label: bytes, count: int) -> list:
+        """``count`` host points of unknown dlog from Shake256(label ||
+        compressed_G), 64 bytes a point."""
+        shake = hashlib.shake_256()
+        shake.update(label)
+        shake.update(CH.compress(CH.GEN))
+        stream = shake.digest(64 * count)
+        return [CH.from_uniform_bytes_secure(stream[64 * i: 64 * i + 64])
+                for i in range(count)]
+
+    @staticmethod
+    def _derive_cached(label: bytes, n: int, device, secure: bool):
         """The n + 1 points, from the on-disk cache when present."""
-        key = hashlib.sha256(b"u32x8|" + label + b"|" + str(n).encode()).hexdigest()[:24]
+        mode = b"u32x8|secure|" if secure else b"u32x8|"
+        key = hashlib.sha256(mode + label + b"|" + str(n).encode()).hexdigest()[:24]
         path = os.path.join(_gens_cache_dir(), f"gens_{key}.npz")
         try:
             d = np.load(path)
@@ -158,7 +176,10 @@ class MultiCommitGens:
                     torch.from_numpy(d["inf"]).to(device))
         except (OSError, KeyError, ValueError):
             pass
-        pts = points_from_scalars(_gen_scalars_from_label(label, n + 1), device)
+        if secure:
+            pts = CU.encode_points_affine(MultiCommitGens._derive_secure(label, n + 1), device)
+        else:
+            pts = points_from_scalars(_gen_scalars_from_label(label, n + 1), device)
         try:
             tmp = f"{path}.{os.getpid()}.npz"
             with open(tmp, "wb") as fh:

@@ -210,6 +210,11 @@ class EqPolynomial:
             return F.encode_fr(HP.eq_evals(self.r), device=device)
         return k_eq_evals(F.encode_fr(self.r, device=device), len(self.r))
 
+    def evals(self, device=None) -> list[int]:
+        """The eq table as host ints: the host table up to ``HP.HOST_N``
+        entries, else ``k_eq_evals`` on ``device`` (or the current one)."""
+        return F.decode_fr(self.evals_device(device))
+
     @staticmethod
     def compute_factored_lens(ell: int) -> tuple[int, int]:
         return ell // 2, ell - ell // 2

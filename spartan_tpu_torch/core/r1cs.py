@@ -3,7 +3,8 @@
 Counterpart of the shape part of ``spartan_tpu/core/r1cs.py`` (reference
 r1cs.rs:23-160): the shape, satisfiability check, MLE evaluation, digest,
 and the phase-1/phase-2 table builders; and the SNARK-mode commitment to
-A, B, C with its evaluation proof (r1cs.rs:263-491), Hyrax only.
+A, B, C with its evaluation proof (r1cs.rs:263-491), its derefs committed
+by Hyrax or KZG (``R1CSCommitmentGens(..., pcs=)``).
 """
 
 from __future__ import annotations
@@ -38,12 +39,22 @@ class R1CSShape:
         ny = log_2(2 * num_vars)
 
         def build(tups):
-            return SparseMatPolynomial(nx, ny, [t[0] for t in tups], [t[1] for t in tups],
-                                       [t[2] for t in tups])
+            return SparseMatPolynomial.from_arrays(
+                nx, ny, rows=[t[0] for t in tups], cols=[t[1] for t in tups],
+                vals=[t[2] for t in tups])
 
         self.A = build(A)
         self.B = build(B)
         self.C = build(C)
+
+    def get_num_vars(self) -> int:
+        return self.num_vars
+
+    def get_num_cons(self) -> int:
+        return self.num_cons
+
+    def get_num_inputs(self) -> int:
+        return self.num_inputs
 
     def bincode_bytes(self) -> bytes:
         """bincode-1.x legacy encoding of the shape, byte-identical to the

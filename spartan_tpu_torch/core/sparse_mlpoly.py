@@ -68,21 +68,64 @@ def _k_gather_mul3(vals, eq_x, eq_y, rows, cols):
     return fr.reduce_sum(t, axis=0)
 
 
-class SparseMatPolynomial:
-    """MLE of a sparse matrix (sparse_mlpoly.rs:36-181), device-accelerated."""
+class SparseMatEntry:
+    """One entry of a sparse matrix (sparse_mlpoly.rs:10-32)."""
 
-    def __init__(self, num_vars_x: int, num_vars_y: int, rows, cols, vals):
+    __slots__ = ("row", "col", "val")
+
+    def __init__(self, row: int, col: int, val: int):
+        self.row = row
+        self.col = col
+        self.val = val % FR_MOD
+
+
+class _EntriesView:
+    """Lazy sequence of ``SparseMatEntry`` over the array storage (len /
+    index / iterate): no per-entry objects unless asked for."""
+
+    def __init__(self, poly: "SparseMatPolynomial"):
+        self._p = poly
+
+    def __len__(self):
+        return len(self._p.vals)
+
+    def __getitem__(self, i):
+        return SparseMatEntry(int(self._p.rows[i]), int(self._p.cols[i]), self._p.vals[i])
+
+    def __iter__(self):
+        for r, c, v in zip(self._p.rows.tolist(), self._p.cols.tolist(), self._p.vals):
+            yield SparseMatEntry(r, c, v)
+
+
+class SparseMatPolynomial:
+    """MLE of a sparse matrix (sparse_mlpoly.rs:36-181), device-accelerated.
+
+    Built from ``SparseMatEntry``s (the reference's form) or, without any
+    per-entry object, from ``rows``/``cols``/``vals`` arrays; ``M`` views
+    the arrays as entries."""
+
+    def __init__(self, num_vars_x: int, num_vars_y: int, entries=None, *,
+                 rows=None, cols=None, vals=None):
         self.num_vars_x = num_vars_x
         self.num_vars_y = num_vars_y
+        if entries is not None:
+            rows = [e.row for e in entries]
+            cols = [e.col for e in entries]
+            vals = [e.val for e in entries]
         self.rows = np.asarray(rows, dtype=np.int64)
         self.cols = np.asarray(cols, dtype=np.int64)
         self.vals = [v % FR_MOD for v in vals]
+        self.M = _EntriesView(self)
         self._order_r = np.argsort(self.rows, kind="stable")
         self._order_c = np.argsort(self.cols, kind="stable")
         self._rows_sorted = self.rows[self._order_r]
         self._cols_sorted = self.cols[self._order_c]
         self._dev: dict = {}   # device -> tensors (lazy)
         self._bnd_cache: dict = {}
+
+    @staticmethod
+    def from_arrays(num_vars_x: int, num_vars_y: int, rows, cols, vals) -> "SparseMatPolynomial":
+        return SparseMatPolynomial(num_vars_x, num_vars_y, rows=rows, cols=cols, vals=vals)
 
     def _device(self, device):
         key = str(device)
@@ -105,6 +148,9 @@ class SparseMatPolynomial:
         """Drop the cached device copies (rebuilt lazily on next use)."""
         self._dev.clear()
         self._bnd_cache.clear()
+
+    def num_entries(self) -> int:
+        return len(self.vals)
 
     def get_num_nz_entries(self) -> int:
         """Padded nnz (sparse_mlpoly_full.rs:74), floored at 2 as in the
@@ -141,6 +187,14 @@ class SparseMatPolynomial:
         d = self._device(evals_mont.device)
         starts, ends = self._boundaries("col", num_cols, evals_mont.device)
         return _k_segment_sums_perm(d["vals"], evals_mont, d["rows"], d["perm_c"], starts, ends)
+
+    def compute_eval_table_sparse(self, evals: list[int], num_rows: int, num_cols: int,
+                                  device=None) -> list[int]:
+        """M^T @ evals as host ints (sparse_mlpoly.rs:145-160), computed on
+        ``device`` (or the current one)."""
+        assert len(evals) == num_rows
+        return F.decode_fr(self.compute_eval_table_sparse_device(
+            F.encode_fr(evals, device=device), num_cols))
 
     def evaluate_with_tables_device(self, eq_rx_mont, eq_ry_mont) -> int:
         if not self.vals:

@@ -50,6 +50,10 @@ class Assignment:
         return Assignment(self.assignment + [0] * (length - len(self.assignment)))
 
 
+VarsAssignment = Assignment
+InputsAssignment = Assignment
+
+
 class Instance:
     """R1CSShape + digest (snark.rs:59-160)."""
 

@@ -41,7 +41,7 @@ def test_multiply_vec_matches_host(monkeypatch):
     cols = rng.integers(0, 16, size=rows.size)
     vals = [int(v) for v in rng.integers(1, 1 << 62, size=rows.size)]
     z = [int.from_bytes(rng.bytes(32), "little") % P for _ in range(16)]
-    M = SM.SparseMatPolynomial(3, 4, rows, cols, vals)
+    M = SM.SparseMatPolynomial.from_arrays(3, 4, rows, cols, vals)
     got = F.decode_fr(M.multiply_vec(8, 16, z, device="cpu").Z)
     want = [0] * 8
     for r, c, v in zip(rows, cols, vals):

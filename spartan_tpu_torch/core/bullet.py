@@ -25,13 +25,15 @@ from spartan_tpu_torch.ops import msm as MSM
 from spartan_tpu_torch.ops.fields_host import FR_MOD, fr_inv
 from spartan_tpu_torch.utils.errors import ProofVerifyError
 from spartan_tpu_torch.utils.math import log_2
+from spartan_tpu_torch.utils.timer import Timer
 
 fr = F.fr
 
 
 def _msm_with_extras_host(G_host, scalars, extra_points, extra_scalars):
-    pts = list(G_host) + [p.p for p in extra_points]
-    return GroupElem(CH.msm(list(scalars) + [s % FR_MOD for s in extra_scalars], pts))
+    with Timer("bullet.host_msm"):
+        pts = list(G_host) + [p.p for p in extra_points]
+        return GroupElem(CH.msm(list(scalars) + [s % FR_MOD for s in extra_scalars], pts))
 
 
 def _fold_points_host(G_host, u: int, u_inv: int):
@@ -91,7 +93,9 @@ class BulletReductionProof:
         assert G_affine[0].shape[0] == n
 
         host = n <= HP.HOST_MSM_N  # small-size host tail (see core/hostpath.py)
+        tail = None   # the span of the host tail, from its decode to the last round
         if host:
+            tail = Timer("bullet.host_tail")
             a = F.decode_fr(a_mont)
             b = F.decode_fr(b_mont)
             G = CU.decode_points(CU.from_affine(*G_affine))
@@ -110,6 +114,7 @@ class BulletReductionProof:
         for i in range(lg_n):
             if not host and a.shape[0] <= HP.HOST_MSM_N:
                 host = True
+                tail = Timer("bullet.host_tail")
                 a = F.decode_fr(a)
                 b = F.decode_fr(b)
                 G = CU.decode_points(CU.from_affine(*G))
@@ -152,6 +157,8 @@ class BulletReductionProof:
 
             L_vec.append(L)
             R_vec.append(R)
+        if tail is not None:
+            tail.stop()
 
         if host:
             a_hat = a[0]

@@ -17,6 +17,7 @@ from spartan_tpu_torch.core.mle import DensePolynomial
 from spartan_tpu_torch.core.sparse_mlpoly import SparseMatPolynomial
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.utils.math import is_power_of_two, log_2, next_power_of_two
+from spartan_tpu_torch.utils.timer import Timer
 
 fr = F.fr
 
@@ -109,7 +110,8 @@ class R1CSShape:
     def multiply_vec(self, num_rows: int, num_cols: int, z: list[int], device=None):
         assert num_rows == self.num_cons
         assert len(z) == num_cols
-        z_mont = F.encode_fr(z, device=device)
+        with Timer("witness_encode"):
+            z_mont = F.encode_fr(z, device=device)
         return (
             DensePolynomial(self.A.multiply_vec_device(num_rows, z_mont)),
             DensePolynomial(self.B.multiply_vec_device(num_rows, z_mont)),
@@ -206,8 +208,10 @@ class R1CSEvalProof:
               transcript, random_tape, mesh=None) -> "R1CSEvalProof":
         from spartan_tpu_torch.core.sparse_mlpoly_full import SparseMatPolyEvalProof
 
-        return R1CSEvalProof(SparseMatPolyEvalProof.prove(
-            decomm.dense, rx, ry, list(evals), gens.gens, transcript, random_tape, mesh=mesh))
+        with Timer("R1CSEvalProof::prove"):
+            return R1CSEvalProof(SparseMatPolyEvalProof.prove(
+                decomm.dense, rx, ry, list(evals), gens.gens, transcript, random_tape,
+                mesh=mesh))
 
     def verify(self, comm: R1CSCommitment, rx: list[int], ry: list[int],
                evals: tuple[int, int, int], gens: R1CSCommitmentGens, transcript) -> None:

@@ -91,7 +91,8 @@ class R1CSProof:
 
         dev = gens.device
         timer_commit = Timer("polycommit")
-        poly_vars = DensePolynomial.from_ints(vars_, device=dev)
+        with Timer("witness_encode"):
+            poly_vars = DensePolynomial.from_ints(vars_, device=dev)
         comm_vars, blinds_vars = commit_poly(poly_vars, gens.gens_pc, random_tape, mesh=mesh)
         comm_vars.append_to_transcript(b"poly_commitment", transcript)
         timer_commit.stop()
@@ -164,7 +165,7 @@ class R1CSProof:
                                mle.encode_scalar(r_C, dev))
 
         timer_sc2 = Timer("prove_sc_phase_two")
-        with Timer("sc2_encode_z"):
+        with Timer("sc2_encode_z"), Timer("witness_encode"):
             poly_z = DensePolynomial.from_ints(z, device=dev)
         poly_ABC = DensePolynomial(evals_ABC)
         (sc_proof_phase2, ry, claims_phase2, blind_claim_postsc2) = \

@@ -25,6 +25,7 @@ from spartan_tpu_torch.core.mle import DensePolynomial, EqPolynomial
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops.fields_host import FR_MOD
 from spartan_tpu_torch.utils.math import next_power_of_two
+from spartan_tpu_torch.utils.timer import Timer
 
 fr = F.fr
 
@@ -129,15 +130,16 @@ class SparseMatPolynomial:
 
     def _device(self, device):
         key = str(device)
-        if key not in self._dev:
-            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            self._dev[key] = {
-                "vals": F.encode_fr(self.vals, device=device),
-                "rows": t(self.rows),
-                "cols": t(self.cols),
-                "perm_r": t(self._order_r),
-                "perm_c": t(self._order_c),
-            }
+        with Timer("matrix_device_copy"):
+            if key not in self._dev:
+                t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                self._dev[key] = {
+                    "vals": F.encode_fr(self.vals, device=device),
+                    "rows": t(self.rows),
+                    "cols": t(self.cols),
+                    "perm_r": t(self._order_r),
+                    "perm_c": t(self._order_c),
+                }
         return self._dev[key]
 
     def vals_device(self, device) -> torch.Tensor:
@@ -160,12 +162,13 @@ class SparseMatPolynomial:
 
     def _boundaries(self, axis: str, num_segments: int, device):
         key = (axis, num_segments, str(device))
-        if key not in self._bnd_cache:
-            keys = self._rows_sorted if axis == "row" else self._cols_sorted
-            starts = np.searchsorted(keys, np.arange(num_segments), side="left")
-            ends = np.searchsorted(keys, np.arange(num_segments), side="right")
-            self._bnd_cache[key] = (torch.from_numpy(starts).to(device),
-                                    torch.from_numpy(ends).to(device))
+        with Timer("matrix_device_copy"):
+            if key not in self._bnd_cache:
+                keys = self._rows_sorted if axis == "row" else self._cols_sorted
+                starts = np.searchsorted(keys, np.arange(num_segments), side="left")
+                ends = np.searchsorted(keys, np.arange(num_segments), side="right")
+                self._bnd_cache[key] = (torch.from_numpy(starts).to(device),
+                                        torch.from_numpy(ends).to(device))
         return self._bnd_cache[key]
 
     def multiply_vec_device(self, num_rows: int, z_mont) -> torch.Tensor:

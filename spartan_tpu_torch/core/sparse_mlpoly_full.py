@@ -102,13 +102,16 @@ class AddrTimestamps:
         self._addr_dev = [torch.from_numpy(a).to(device) for a in self.ops_addr_usize]
 
     def ops_addr(self) -> list[DensePolynomial]:
-        return [DensePolynomial.from_usize(a, self.device) for a in self.ops_addr_usize]
+        with Timer("addr_ts_tables"):
+            return [DensePolynomial.from_usize(a, self.device) for a in self.ops_addr_usize]
 
     def read_ts(self) -> list[DensePolynomial]:
-        return [DensePolynomial.from_usize(t, self.device) for t in self.read_ts_usize]
+        with Timer("addr_ts_tables"):
+            return [DensePolynomial.from_usize(t, self.device) for t in self.read_ts_usize]
 
     def audit_ts(self) -> DensePolynomial:
-        return DensePolynomial.from_usize(self.audit_ts_usize, self.device)
+        with Timer("addr_ts_tables"):
+            return DensePolynomial.from_usize(self.audit_ts_usize, self.device)
 
     def deref(self, mem_val_dev) -> list[DensePolynomial]:
         """Gather mem[addr] per instance (sparse_mlpoly_full.rs:245-257)."""

@@ -34,7 +34,6 @@ bytes are the single-device ones either way.
 
 from __future__ import annotations
 
-import time as _time
 from dataclasses import dataclass
 
 from spartan_tpu_torch.core import hostpath as HP
@@ -413,8 +412,9 @@ class ZKSumcheckInstanceProof:
         if mesh is not None and mesh.size > 1 and cur_n >= 2 * mesh.size and \
                 cur_n % (2 * mesh.size) == 0:
             mesh_t = _MeshTables(mesh, tables, kind)
+        lap = Timer.laps(f"zk_{kind}")
         for j in range(num_rounds):
-            _t = _time.perf_counter()
+            lap()
             if mesh_t is None and host is None and cur_n <= HP.HOST_N:
                 host = mle.decode_tables([p.Z for p in tables])
             if host is not None:
@@ -424,16 +424,14 @@ class ZKSumcheckInstanceProof:
                     pending = mesh_t.evals() if mesh_t is not None else \
                         evals(*(p.Z for p in tables))
                 v = F.decode_fr(pending)
-            Timer.acc(f"zk_{kind}/evals", _time.perf_counter() - _t)
-            _t = _time.perf_counter()
+            lap("evals")
             poly = UniPoly.from_evals([v[0], (claim_per_round - v[0]) % FR_MOD, *v[1:]])
             comm_poly = commit(poly.as_vec(), blinds_poly[j], gens_n)
             comm_poly.append_to_transcript(b"comm_poly", transcript)
             comm_polys.append(comm_poly)
 
             r_j = transcript.challenge_scalar(b"challenge_nextround")
-            Timer.acc(f"zk_{kind}/commit_poly", _time.perf_counter() - _t)
-            _t = _time.perf_counter()
+            lap("commit_poly")
             if host is not None:
                 host = [HP.fold_top(t, r_j) for t in host]
             elif mesh_t is not None:
@@ -454,16 +452,15 @@ class ZKSumcheckInstanceProof:
                 for p, z in zip(tables, folded):
                     p.rebind(z)
             cur_n //= 2
-            Timer.acc(f"zk_{kind}/fold", _time.perf_counter() - _t)
+            lap("fold")
 
-            _t = _time.perf_counter()
             blind_sc = blind_claim if j == 0 else blinds_evals[j - 1]
             proof, eval_, comm_eval = ZKSumcheckInstanceProof._round_tail(
                 poly, r_j, claim_per_round, comm_claim_per_round,
                 blinds_poly[j], blinds_evals[j], blind_sc,
                 gens_1, gens_n, transcript, random_tape,
             )
-            Timer.acc(f"zk_{kind}/round_tail", _time.perf_counter() - _t)
+            lap("round_tail")
             proofs.append(proof)
             claim_per_round = eval_
             comm_claim_per_round = comm_eval

@@ -169,41 +169,13 @@ def verify_only(inst, vars_, inputs, max_nnz, load_dir: str, pcs: str = "hyrax",
     return report
 
 
-def _device_busy(prof) -> tuple[int, float]:
-    """(device events, seconds in which the card ran anything: kernels,
-    copies, sets) of a torch.profiler trace: the union of its device
-    events' intervals."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    return len(spans), busy_us / 1e6
-
-
-def _device_top(prof, k: int = 12) -> list:
-    """The k operations of a torch.profiler trace with the most device
-    time of their own: [{"name", "calls", "device_ms"}]."""
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append({"name": ev.key, "calls": ev.count, "device_ms": us / 1e3})
-    return sorted(rows, key=lambda r: -r["device_ms"])[:k]
-
-
 def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False,
         config=None, save_dir: str | None = None, device=None,
         profile_dir: str | None = None, tape_seed: bytes | None = None, mesh=None):
     """Gens, encode, prove, verify with each phase timed; ``profile_dir``
     traces the prove with torch.profiler (CPU and CUDA activities) into
-    ``profile_dir/prove_trace.json`` and reports the device's idle share.
+    ``profile_dir/prove_trace.json``, the program's spans a track of
+    ranges on its host timeline.
     The prover's random tape is seeded from ``tape_seed`` (OS randomness
     if None, rank 0's under a mesh), so two runs of one seed make the same
     proof. With ``mesh`` every rank calls this; encode and prove are
@@ -274,13 +246,7 @@ def run(inst, vars_, inputs, max_nnz, pcs: str = "hyrax", json_out: bool = False
     if prof is not None:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "prove_trace.json"))
-        events, busy = _device_busy(prof)
-        # no device events: the profiler saw no card (idle share not measured)
-        report["profile"] = {"trace": os.path.join(profile_dir, "prove_trace.json"),
-                             "prove_device_events": events, "prove_device_busy_s": busy,
-                             "prove_device_idle_share":
-                                 1.0 - busy / report["prove_s"] if events else None,
-                             "prove_device_top": _device_top(prof)}
+        report["profile"] = {"trace": os.path.join(profile_dir, "prove_trace.json")}
 
     Timer.collect()
     t0 = time.perf_counter()

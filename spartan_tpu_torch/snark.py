@@ -33,6 +33,7 @@ from spartan_tpu_torch.utils.errors import (
 )
 from spartan_tpu_torch.utils.math import log_2, next_power_of_two, pow2
 from spartan_tpu_torch.utils.random_tape import RandomTape
+from spartan_tpu_torch.utils.timer import Timer
 from spartan_tpu_torch.utils.transcript import Transcript
 
 
@@ -138,36 +139,40 @@ class NIZK:
         shards the prove over its ranks; every rank must call this with the
         same arguments, and gets the single-device proof."""
         _check_mesh(mesh, gens)
-        tape = random_tape if random_tape is not None else RandomTape(b"proof")
-        transcript.append_protocol_name(NIZK.PROTOCOL)
-        transcript.append_message(b"R1CSShapeDigest", inst.digest)
+        with Timer("NIZK::prove"):
+            tape = random_tape if random_tape is not None else RandomTape(b"proof")
+            transcript.append_protocol_name(NIZK.PROTOCOL)
+            with Timer("shape_digest_absorb"):
+                transcript.append_message(b"R1CSShapeDigest", inst.digest)
 
-        padded = vars_
-        if inst.inst.num_vars > len(vars_.assignment):
-            padded = vars_.pad(inst.inst.num_vars)
+            padded = vars_
+            if inst.inst.num_vars > len(vars_.assignment):
+                padded = vars_.pad(inst.inst.num_vars)
 
-        with DEV.use(gens.device):
-            proof, rx, ry = R1CSProof.prove(
-                inst.inst, padded.assignment, input_.assignment,
-                gens.gens_r1cs_sat, transcript, tape, mesh=mesh,
-            )
+            with DEV.use(gens.device):
+                proof, rx, ry = R1CSProof.prove(
+                    inst.inst, padded.assignment, input_.assignment,
+                    gens.gens_r1cs_sat, transcript, tape, mesh=mesh,
+                )
         return NIZK(proof, (rx, ry))
 
     def verify(self, inst: Instance, input_: Assignment,
                transcript: Transcript, gens: NIZKGens) -> None:
-        transcript.append_protocol_name(NIZK.PROTOCOL)
-        transcript.append_message(b"R1CSShapeDigest", inst.digest)
+        with Timer("NIZK::verify"):
+            transcript.append_protocol_name(NIZK.PROTOCOL)
+            with Timer("shape_digest_absorb"):
+                transcript.append_message(b"R1CSShapeDigest", inst.digest)
 
-        claimed_rx, claimed_ry = self.r
-        with DEV.use(gens.device):
-            inst_evals = inst.inst.evaluate(claimed_rx, claimed_ry)
+            claimed_rx, claimed_ry = self.r
+            with DEV.use(gens.device):
+                inst_evals = inst.inst.evaluate(claimed_rx, claimed_ry)
 
-            if len(input_.assignment) != inst.inst.num_inputs:
-                raise ProofVerifyError("wrong number of inputs")
-            rx, ry = self.r1cs_sat_proof.verify(
-                inst.inst.num_vars, inst.inst.num_cons, input_.assignment,
-                inst_evals, transcript, gens.gens_r1cs_sat,
-            )
+                if len(input_.assignment) != inst.inst.num_inputs:
+                    raise ProofVerifyError("wrong number of inputs")
+                rx, ry = self.r1cs_sat_proof.verify(
+                    inst.inst.num_vars, inst.inst.num_cons, input_.assignment,
+                    inst_evals, transcript, gens.gens_r1cs_sat,
+                )
         if rx != claimed_rx or ry != claimed_ry:
             raise ProofVerifyError("NIZK: claimed (rx, ry) do not match transcript")
 
@@ -226,7 +231,7 @@ class SNARK:
         """Preprocessing: commit the R1CS matrices (snark.rs:416-425);
         ``mesh`` shards the row commits."""
         _check_mesh(mesh, gens)
-        with DEV.use(gens.device):
+        with Timer("SNARK::encode"), DEV.use(gens.device):
             return inst.inst.commit(gens.gens_r1cs_eval, mesh=mesh)
 
     @staticmethod
@@ -236,37 +241,41 @@ class SNARK:
               mesh=None) -> "SNARK":
         """``mesh`` as in ``NIZK.prove``: the same proof from every rank."""
         _check_mesh(mesh, gens)
-        tape = random_tape if random_tape is not None else RandomTape(b"snark_proof")
-        transcript.append_protocol_name(SNARK.PROTOCOL)
-        comm.append_to_transcript(b"comm", transcript)
+        with Timer("SNARK::prove"):
+            tape = random_tape if random_tape is not None else RandomTape(b"snark_proof")
+            transcript.append_protocol_name(SNARK.PROTOCOL)
+            comm.append_to_transcript(b"comm", transcript)
 
-        padded = vars_
-        if inst.inst.num_vars > len(vars_.assignment):
-            padded = vars_.pad(inst.inst.num_vars)
+            padded = vars_
+            if inst.inst.num_vars > len(vars_.assignment):
+                padded = vars_.pad(inst.inst.num_vars)
 
-        with DEV.use(gens.device):
-            r1cs_sat_proof, rx, ry = R1CSProof.prove(
-                inst.inst, padded.assignment, input_.assignment,
-                gens.gens_r1cs_sat, transcript, tape, mesh=mesh)
-            inst_evals = inst.inst.evaluate(rx, ry)
-            # the matrices' device copies are done with; free them before
-            # the lookup argument
-            for m in (inst.inst.A, inst.inst.B, inst.inst.C):
-                m.release_device()
-            r1cs_eval_proof = R1CSEvalProof.prove(
-                decomm, rx, ry, inst_evals, gens.gens_r1cs_eval, transcript, tape, mesh=mesh)
+            with DEV.use(gens.device):
+                r1cs_sat_proof, rx, ry = R1CSProof.prove(
+                    inst.inst, padded.assignment, input_.assignment,
+                    gens.gens_r1cs_sat, transcript, tape, mesh=mesh)
+                with Timer("R1CSShape::evaluate"):
+                    inst_evals = inst.inst.evaluate(rx, ry)
+                # the matrices' device copies are done with; free them before
+                # the lookup argument
+                for m in (inst.inst.A, inst.inst.B, inst.inst.C):
+                    m.release_device()
+                r1cs_eval_proof = R1CSEvalProof.prove(
+                    decomm, rx, ry, inst_evals, gens.gens_r1cs_eval, transcript, tape,
+                    mesh=mesh)
         return SNARK(r1cs_sat_proof, inst_evals, r1cs_eval_proof)
 
     def verify(self, comm: R1CSCommitment, input_: Assignment,
                transcript: Transcript, gens: SNARKGens) -> None:
-        transcript.append_protocol_name(SNARK.PROTOCOL)
-        comm.append_to_transcript(b"comm", transcript)
+        with Timer("SNARK::verify"):
+            transcript.append_protocol_name(SNARK.PROTOCOL)
+            comm.append_to_transcript(b"comm", transcript)
 
-        if len(input_.assignment) != comm.num_inputs:
-            raise ProofVerifyError("wrong number of inputs")
-        with DEV.use(gens.device):
-            rx, ry = self.r1cs_sat_proof.verify(
-                comm.num_vars, comm.num_cons, input_.assignment,
-                self.inst_evals, transcript, gens.gens_r1cs_sat)
-            self.r1cs_eval_proof.verify(
-                comm, rx, ry, self.inst_evals, gens.gens_r1cs_eval, transcript)
+            if len(input_.assignment) != comm.num_inputs:
+                raise ProofVerifyError("wrong number of inputs")
+            with DEV.use(gens.device):
+                rx, ry = self.r1cs_sat_proof.verify(
+                    comm.num_vars, comm.num_cons, input_.assignment,
+                    self.inst_evals, transcript, gens.gens_r1cs_sat)
+                self.r1cs_eval_proof.verify(
+                    comm, rx, ry, self.inst_evals, gens.gens_r1cs_eval, transcript)

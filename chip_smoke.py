@@ -94,7 +94,7 @@ Phases, each printing one JSON line (``"phase": ...``):
             and verify; every rank's prove must launch every kernel but
             T1 (the mesh hands each product sumcheck to T2 at
             SMALL_BUCKET_N entries), T2 once per layer sumcheck, H4 as
-            often as SHARDED_H4 says, and take
+            often as SHARDED_H4 and ``bullet_h4`` say, and take
             every mesh branch (both ZK phases' and the product layers'
             sharded tables, each 1/D of its full size, so that S2's
             largest table is 1/D of the single-device prove's; the
@@ -161,8 +161,8 @@ SC_PROD_MID_N = 1 << 15  # a mid-size product round, where launches start to cou
 # rows into 5 MSMs of at most 820 rows (ROWS_BUDGET), c = 10, 26 windows;
 # the witness commit is one MSM of 1024 rows, c = 7, 37 windows
 HORNER_SHAPES = (("derefs commit MSM", 820, 10), ("witness commit MSM", 1 << 10, 7))
-# H2's double-and-add: a bullet fold of 2^14 generators, the first size the
-# bullet reductions keep on the card (above hostpath.HOST_MSM_N)
+# H2's double-and-add: a bullet fold of 2^14 generators (the card's bullet
+# rounds fold from 8,192 down to hostpath.HOST_BULLET_N)
 SCALAR_MUL_N = 1 << 14
 # H4's shapes in the 2^20 proves, (label, rows, buckets): a KZG MSM's bucket
 # pass of CHUNK_BUDGET // 2^25 rows (H4's launch while it ran per chunk),
@@ -183,6 +183,12 @@ H4_PROVE = {"hyrax": 16, "kzg": 3}
 # chunk launches; under KZG its witness rows' one and the two MSMs of
 # 2^24 + 1 points a rank, each in one launch (before, 6 of 3 rows each: 13)
 SHARDED_H4 = {"hyrax": 10, "kzg": 3}
+# plus, in either prove, one H4 launch for each bullet round on the card
+# (its MSM has 66 to 8,194 points) and one for each such opening's Cx
+# commit: the openings of the derefs (Hyrax only), comb_ops, comb_mem and
+# the witness
+BULLET_OPENINGS = {"hyrax": (1 << 13, 1 << 13, 1 << 11, 1 << 10),
+                   "kzg": (1 << 13, 1 << 11, 1 << 10)}
 KZG_SWEEP_C, KZG_SWEEP_TURNS = (14, 15, 16), 3
 NIZK_LOG2 = 16       # the NIZK alone
 CROSS_LOG2 = 10      # card-vs-CPU NIZK comparison
@@ -1413,15 +1419,16 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
     want = tail_launches(SF.SMALL_BUCKET_N)
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"{pcs}: T1/T2 launches {counts} != {want}")
-    # H4: H4_PROVE launches; under KZG each of the two KZG MSMs in one
+    # H4: H4_PROVE launches and the bullet rounds'; under KZG each of the
+    # two KZG MSMs in one
     h4_sites = {}
     for row in launches:
         if row["kernel"] == "msm_weighted":
             h4_sites[row["site"]] = h4_sites.get(row["site"], 0) + row["launches"]
-    if counts["msm_weighted"] != H4_PROVE[pcs] or (
+    if counts["msm_weighted"] != H4_PROVE[pcs] + bullet_h4(pcs) or (
             pcs == "kzg" and h4_sites.get("kzg._commit_msm") != 2):
         raise AssertionError(f"{pcs}: H4 launches {counts['msm_weighted']} by site {h4_sites}, "
-                             f"expected {H4_PROVE[pcs]}")
+                             f"expected {H4_PROVE[pcs] + bullet_h4(pcs)}")
 
     raw = serialize(proof)
     t = time.perf_counter()
@@ -1804,6 +1811,15 @@ def sharded_rank(mesh, inst_path: str, srs_paths: dict) -> dict:
     return out
 
 
+def bullet_h4(pcs: str) -> int:
+    """H4 launches of a 2^20 prove's bullet reductions at HOST_BULLET_N:
+    lg n - lg HOST_BULLET_N rounds and one Cx commit per opening."""
+    from spartan_tpu_torch.core import hostpath as HP
+
+    cut = HP.HOST_BULLET_N.bit_length() - 1
+    return sum(n.bit_length() - cut for n in BULLET_OPENINGS[pcs] if n > HP.HOST_BULLET_N)
+
+
 def run_sharded(torch, inst_path: str, refs: dict) -> list:
     """The sharded phase: SHARDED_WORLD ranks on the card prove the snark
     phases' instance under both PCS; every rank's bytes must equal the
@@ -1824,7 +1840,7 @@ def run_sharded(torch, inst_path: str, refs: dict) -> list:
                     "a correctness run of the sharded path, not a multi-GPU speed figure",
             "spawn_to_join_s": wall_s, "load_s": [r["load_s"] for r in ranks],
             "expected_kernels": list(SHARDED_KERNELS), "expected_t2": want_t2,
-            "expected_h4": SHARDED_H4}
+            "expected_h4": {pcs: SHARDED_H4[pcs] + bullet_h4(pcs) for pcs in SHARDED_H4}}
     failures = []
     for pcs, ref in refs.items():
         same = all(r[pcs]["comm"] == ref["comm"] and r[pcs]["proof"] == ref["proof"]
@@ -1832,7 +1848,8 @@ def run_sharded(torch, inst_path: str, refs: dict) -> list:
         launched = all(min(r[pcs]["launches"][k] for k in SHARDED_KERNELS) > 0
                        and r[pcs]["launches"]["sc_transcript"] == 0
                        and r[pcs]["launches"]["sc_tail"] == want_t2
-                       and r[pcs]["launches"]["msm_weighted"] == SHARDED_H4[pcs] for r in ranks)
+                       and r[pcs]["launches"]["msm_weighted"] == SHARDED_H4[pcs] + bullet_h4(pcs)
+                       for r in ranks)
         engaged = [mesh_engaged(r[pcs], pcs, ref["s2_max_entries"]) for r in ranks]
         line[pcs] = {
             "identical": same, "kernels_launched": launched,
@@ -2152,11 +2169,12 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
 
     # every device path at these sizes; the SNARK keeps the small MSMs of
     # its bullet reductions on the host C backend (their plain versions
-    # on the CPU would take minutes), its row commits and KZG MSMs go to
-    # the device, and its fused product sumchecks run rounds above the
-    # tail (T1, S1/S2) from 2^6 entries down to T2's 2^5
-    snark_lowered = (2, HP.HOST_MSM_N, 0, M.LADDER_N, 0, 1 << 5)
-    lowered = {"nizk": (2, 4, 0, 4, 0, SF.SMALL_BUCKET_N), "snark": snark_lowered,
+    # on the CPU would take minutes; the card's rounds above HOST_BULLET_N
+    # run there), its row commits and KZG MSMs go to the device, and its
+    # fused product sumchecks run rounds above the tail (T1, S1/S2) from
+    # 2^6 entries down to T2's 2^5
+    snark_lowered = (2, HP.HOST_MSM_N, 0, M.LADDER_N, 0, 1 << 5, HP.HOST_BULLET_N)
+    lowered = {"nizk": (2, 4, 0, 4, 0, SF.SMALL_BUCKET_N, 4), "snark": snark_lowered,
                "snark_kzg": snark_lowered}
     srs_path = os.path.join(subdir("cache", "srs"), "smoke_cross.npz")
     if os.path.exists(srs_path):
@@ -2164,9 +2182,9 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
     for what, fn in (("nizk", nizk), ("snark", snark),
                      ("snark_kzg", lambda device: snark(device, "kzg"))):
         saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N,
-                 F._HOST_CONVERT_N, SF.SMALL_BUCKET_N, SF.FUSED)
+                 F._HOST_CONVERT_N, SF.SMALL_BUCKET_N, HP.HOST_BULLET_N, SF.FUSED)
         (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N,
-         SF.SMALL_BUCKET_N) = lowered[what]
+         SF.SMALL_BUCKET_N, HP.HOST_BULLET_N) = lowered[what]
         # the card on the fused path (its default), the card on the
         # per-round path, the CPU (per-round by default)
         runs = (("cuda", None), ("cuda", False), ("cpu", None)) if what != "nizk" \
@@ -2183,7 +2201,7 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
                 out[key] = (serialize(res), time.perf_counter() - t, K.counts())
         finally:
             (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N,
-             SF.SMALL_BUCKET_N, SF.FUSED) = saved
+             SF.SMALL_BUCKET_N, HP.HOST_BULLET_N, SF.FUSED) = saved
         same = all(v[0] == out["cpu"][0] for v in out.values())
         emit({"phase": "cross", "what": what, "log2": log2 if what == "nizk" else snark_log2,
               "identical": same, "sha256": hashlib.sha256(out["cuda"][0]).hexdigest(),

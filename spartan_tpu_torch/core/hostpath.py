@@ -15,6 +15,16 @@ them to drive the device-path code at small sizes:
                       backend, else 128)
   HOST_COMMIT_POINTS  total points of a row-batched commit that stay on
                       the host (16384 with native C, else 512)
+  HOST_BULLET_N       the prover's bullet rounds on a CUDA device run on
+                      the card while the vectors are longer than this, and
+                      on the host from here down (``bullet_on_host``)
+
+The bullet reduction's prover (``core/bullet.py``) is the one place that
+reads its own crossover: a round on the card is a few launches and two
+small host trips, which beats the host C fold and MSMs down to lengths of
+a few dozen, while on a CPU tensor the plain versions lose to the host C
+at every length up to ``HOST_MSM_N``, so CPU rounds keep that threshold.
+Commits, the Hyrax verify and the bullet verifier read ``HOST_MSM_N``.
 """
 
 from __future__ import annotations
@@ -40,6 +50,16 @@ def _default_msm_threshold() -> int:
 HOST_MSM_N = _default_msm_threshold()
 
 HOST_COMMIT_POINTS = 16384 if HOST_MSM_N >= 2048 else 512
+
+HOST_BULLET_N = 32
+
+
+def bullet_on_host(n: int, device) -> bool:
+    """Whether a bullet round over vectors of length n on ``device`` runs on
+    the host: at most ``HOST_BULLET_N`` on a card, at most the larger of
+    ``HOST_BULLET_N`` and ``HOST_MSM_N`` elsewhere."""
+    cut = HOST_BULLET_N if device.type == "cuda" else max(HOST_BULLET_N, HOST_MSM_N)
+    return n <= cut
 
 
 P = FR_MOD

@@ -268,12 +268,12 @@ class DotProductProofLog:
         from spartan_tpu_torch.core.commitments import commit_device
         from spartan_tpu_torch.ops import curve as CU
 
-        if n <= HP.HOST_MSM_N:
+        if n == 1 or HP.bullet_on_host(n, x_mont.device):
             Cx = commit(F.decode_fr(x_mont), blind_x, gens.gens_n)
-        else:
+        else:   # the bullet's first round runs on the card: so does Cx
             Cx_pt = commit_device(x_mont, mle.encode_scalar(blind_x, x_mont.device),
                                   gens.gens_n)
-            Cx = GroupElem(CU.decode_points(tuple(c.unsqueeze(0) for c in Cx_pt))[0])
+            Cx = GroupElem(CU.decode_few(Cx_pt)[0])
         Cx.append_to_transcript(b"Cx", transcript)
         Cy = commit_scalar(y, blind_y, gens.gens_1)
         Cy.append_to_transcript(b"Cy", transcript)

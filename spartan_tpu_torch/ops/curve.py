@@ -28,7 +28,7 @@ import torch
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import kernels as K
 from spartan_tpu_torch.ops.fields_host import FQ_MOD
-from spartan_tpu_torch.ops.limbs import NUM_LIMBS
+from spartan_tpu_torch.ops.limbs import NUM_LIMBS, limbs_to_ints
 
 fq = F.fq
 
@@ -324,10 +324,11 @@ def pselect(mask, p, q):
     return tuple(torch.where(m, a, b) for a, b in zip(p, q))
 
 
-def batch_normalize(p):
-    """Projective -> (x_affine, y_affine, inf_mask), batch-inverting Z along axis 0."""
+def batch_normalize(p, host: bool = False):
+    """Projective -> (x_affine, y_affine, inf_mask), batch-inverting Z along
+    axis 0 (the one inverse of the product on the host if ``host``)."""
     X, Y, Z = p
-    zinv = fq.batch_inverse(Z)  # zeros stay zero
+    zinv = fq.batch_inverse(Z, host)  # zeros stay zero
     x = fq.mul(X, zinv)
     y = fq.mul(Y, zinv)
     inf = fq.is_zero(Z)
@@ -357,6 +358,19 @@ def encode_points_affine(points, device=None) -> tuple:
 def encode_points(points, device=None) -> tuple:
     """List of host affine points -> projective tensors (identity for None)."""
     return from_affine(*encode_points_affine(points, device))
+
+
+def decode_few(p) -> list:
+    """Projective tensors [k] -> host affine points by one device-to-host
+    read of (X, Y, Z) and a Python inverse of each Z: for a few points,
+    where ``decode_points``'s device batch inverse costs more."""
+    k = p[0].numel() // NUM_LIMBS
+    raw = torch.stack([c.reshape(k, NUM_LIMBS) for c in p]).to("cpu").numpy()
+    out = []
+    for x, y, z in zip(*(limbs_to_ints(raw[i]) for i in range(3))):
+        zi = pow(z, -1, FQ_MOD) if z % FQ_MOD else None   # Montgomery factors cancel
+        out.append(None if zi is None else (x * zi % FQ_MOD, y * zi % FQ_MOD))
+    return out
 
 
 def decode_points(p) -> list:

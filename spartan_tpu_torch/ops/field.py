@@ -9,7 +9,8 @@ JAX package's Pallas ``make_field_kernels`` mul/add/sub
 (``sqr``, ``neg``, ``inv``, ``batch_inverse``, ``to_mont``/``from_mont``,
 the log-step scans ``scan_mul``/``scan_add``) is composed from those
 three, as ``spartan_tpu/ops/field_jax.py`` composes its own;
-``reduce_sum`` is plain torch and exact mod p.
+``reduce_sum`` is plain torch and exact mod p; ``host_inv`` inverts a few
+elements on the host.
 
 Plain versions
 --------------
@@ -395,14 +396,25 @@ def make_ops(spec: FieldSpec):
         """Inclusive prefix sums along axis 0 (suffix sums if reverse), on H1 add."""
         return _scan(add, x, reverse)
 
-    def batch_inverse(a):
-        """Inverse along axis 0 via Montgomery's trick (zeros -> zeros)."""
+    def host_inv(a):
+        """``inv`` on the host: one device-to-host read of a, a Python
+        inverse of each element and one upload, in place of the ~380 H1
+        launches of the Fermat ladder. For a few elements."""
+        vals = limbs_to_ints(a.detach().to("cpu").reshape(-1, NUM_LIMBS).numpy())
+        p = spec.modulus
+        out = [pow(v, -1, p) * spec.r2 % p if v else 0 for v in vals]
+        return to_tensor(ints_to_limbs(out), a.device).reshape(a.shape)
+
+    def batch_inverse(a, host: bool = False):
+        """Inverse along axis 0 via Montgomery's trick (zeros -> zeros); the
+        one inverse of the product by ``host_inv`` if ``host``, else by
+        ``inv`` on the tensor's device."""
         zero_mask = is_zero(a).unsqueeze(-1)
         one = ones_mont(a.shape[1:-1], a.device).unsqueeze(0)
         safe = torch.where(zero_mask, one, a)
         pre = _scan_mul(safe)
         suf = _scan_mul(safe, reverse=True)
-        total_inv = inv(pre[-1])
+        total_inv = (host_inv if host else inv)(pre[-1])
         left = torch.cat((one, pre[:-1]), dim=0)
         right = torch.cat((suf[1:], one), dim=0)
         out = mul(mul(left, right), total_inv)
@@ -425,7 +437,8 @@ def make_ops(spec: FieldSpec):
     ops.is_zero, ops.eq = is_zero, eq
     ops.zeros, ops.one = zeros, ones_mont
     ops.to_mont, ops.from_mont = to_mont, from_mont
-    ops.inv, ops.batch_inverse, ops.reduce_sum = inv, batch_inverse, reduce_sum
+    ops.inv, ops.host_inv = inv, host_inv
+    ops.batch_inverse, ops.reduce_sum = batch_inverse, reduce_sum
     ops.scan_mul, ops.scan_add = _scan_mul, _scan_add
     return ops
 

@@ -63,15 +63,17 @@ def proofs():
         *[(m.rows, m.cols, m.vals) for m in (js.A, js.B, js.C)])
     inst = Instance.from_shape(shape)
     n = js.num_cons
-    saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N)
-    HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = \
-        2, 4, 0, 4, 0
+    saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, HP.HOST_BULLET_N, M.LADDER_N,
+             F._HOST_CONVERT_N)
+    HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, HP.HOST_BULLET_N, M.LADDER_N, \
+        F._HOST_CONVERT_N = 2, 4, 0, 2, 4, 0
     try:
         gens = NIZKGens(n, n, 1, device="cpu")
         proof = NIZK.prove(inst, _assignment(jvars), _assignment(jinputs), gens,
                            Transcript(LABEL), RandomTape(b"nizk_proof", seed=TAPE_SEED))
     finally:
-        HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N = saved
+        HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, HP.HOST_BULLET_N, M.LADDER_N, \
+            F._HOST_CONVERT_N = saved
     jgens = JS.NIZKGens(n, n, 1)
     jproof = JS.NIZK.prove(jinst, jvars, jinputs, jgens, JTranscript(LABEL),
                            JRandomTape(b"nizk_proof", seed=TAPE_SEED))

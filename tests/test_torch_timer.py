@@ -22,14 +22,15 @@ from spartan_tpu_torch.utils.timer import Timer
 
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
-    """One intra-op thread, printing off, collection off before and after,
-    and the device sync counted."""
+    """One intra-op thread, printing off, collection off and the
+    accumulators empty before and after, and the device sync counted."""
     before = torch.get_num_threads()
     torch.set_num_threads(1)
     monkeypatch.setattr(Timer, "_enabled", False)
     syncs = []
     monkeypatch.setattr(T, "_sync", lambda: syncs.append(1))
     Timer.collect(False)
+    Timer.acc_reset()   # accumulators another test file left in this worker
     yield syncs
     Timer.collect(False)
     Timer.acc_reset()

@@ -4,7 +4,8 @@ run's pool one private value is moved by one (the wire picked from the
 seed among the first 1,000, each of which the instance uses), so the port
 proves assignments that do not satisfy the instance. The plain
 verifier has to reject those proofs, and the run has to come out not
-correct. The benchmark's own runs never do this.
+correct. On a cell across several chips every rank proves the broken
+pool. The benchmark's own runs never do this.
 
     python3 perfbench/control.py --workload keyless.hyrax --seeds 11,12,13 --seconds 1
 
@@ -12,6 +13,7 @@ prints one JSON line per seed: its checks and ``correct``.
 """
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -41,8 +43,9 @@ class _Broken:
 
 
 def break_witness(seed: int):
-    """A control hook for ``harness.run``: the pool, broken."""
-    return lambda pool: _Broken(pool, seed % 1000)
+    """A control hook for ``harness.run``: the pool, broken. It pickles, so
+    that each rank of a cell on several chips breaks its own pool alike."""
+    return functools.partial(_Broken, k=seed % 1000)
 
 
 def main(argv=None) -> int:

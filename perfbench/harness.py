@@ -18,6 +18,22 @@ collections), and the seconds of each verify (``verify_each_s``).
 With ``trace`` the window runs under ``torch.profiler`` with the program's
 spans and kernel events on, and the result carries the per-layer metrics
 instead of the end-to-end ones.
+
+A cell on more than one chip is one sharded prover: ``perfbench/ranks.py``
+starts a rank per card, and each runs this same loop with a ``Group``.
+Rank 0 alone writes the circuit cache and builds the kernels before the
+others build their inputs; every rank encodes and proves with ``mesh=``.
+Rank 0 owns the window's clock and tells every rank before each iteration
+whether to go on, so all prove the same witnesses with the same tapes the
+same number of times; a prove's time runs from a barrier to a barrier after
+every rank's synchronise (the slowest rank's latency); rank 0 alone
+verifies. After the window the ranks' peaks, proof digests and, traced,
+device busy seconds are gathered to rank 0, which reports the fullest
+card's peak and the mean busy seconds, is judged by the plain verifier, and
+adds one check: ``rank_proofs_differ``, the proofs whose bytes on some rank
+differ from rank 0's. The per-layer metrics read rank 0's spans and trace.
+A rank that fails mid-prove would leave the others in a collective, so
+there a failed prove ends the run instead of being counted.
 """
 
 from __future__ import annotations
@@ -84,11 +100,13 @@ def host_sample(clock: GcClock) -> dict:
 
 
 def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
-        device=None, started: float | None = None, control=None) -> dict:
+        device=None, started: float | None = None, control=None, group=None) -> dict | None:
     """The result's dict. ``device`` None means the CUDA card (required).
     ``control`` (the control script and the tests) is applied to the
     prover after set-up, to break what it proves; the port's own verifier
-    is then not run on the warm-up proof."""
+    is then not run on the warm-up proof. A cell on more than one chip is
+    run by ``ranks.launch``, which calls this in each rank with its
+    ``group``; there ranks other than 0 return None."""
     import torch
 
     from perfbench import check, tracing
@@ -100,9 +118,17 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
             raise Failure(f"{workload} needs {cell['chips']} CUDA device(s)")
-        device = torch.device("cuda")
-    device = torch.device(device)
-    config, traffic = bench.config(cell), bench.traffic(cell)
+    traffic = bench.traffic(cell)
+    if traffic.get("sharded", False) != (cell["chips"] > 1):
+        raise Failure("a sharded traffic mix runs on more than one chip, any other on one")
+    if cell["chips"] > 1 and group is None:
+        from perfbench import ranks
+
+        return ranks.launch(root, workload, seed, seconds, trace, cell["chips"], device=device,
+                            started=started, control=control)
+    device = torch.device("cuda" if device is None else device)
+    lead = group is None or group.rank == 0   # owns the window's clock, verifies, reports
+    config = bench.config(cell)
     if traffic.get("loop", "closed") != "closed" or traffic.get("provers", 1) != 1:
         raise Failure("the harness runs a closed loop of one prover only")
 
@@ -110,20 +136,29 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
 
     phases = {"start_s": time.time() - started}
     t = time.perf_counter()
+    if not lead:
+        group.barrier()   # rank 0 writes the circuit cache and builds the kernels first
     inputs = bench.generator(config).build(config, seed, os.path.join(bench.dir, ".cache"),
                                            traffic.get("witnesses", 1), device)
     pool = inputs["witnesses"] if control is None else control(inputs["witnesses"])
     if device.type == "cuda":
         torch.cuda.empty_cache()   # the prover starts on an empty cache, as without a pool
+    if group is not None:
+        if lead:
+            sut.build_kernels(device)
+            group.barrier()
+        group.beat("inputs")
     phases["inputs_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    prover = sut.Prover(inputs, traffic, device)
+    prover = sut.Prover(inputs, traffic, device, mesh=None if group is None else group.mesh)
     phases["prover_s"] = time.perf_counter() - t
+    if group is not None:
+        group.beat("prover")
     t = time.perf_counter()
     vars_, public = prover.assign(pool[0])
     warm = prover.prove(tape_seed(seed, "warm-up"), vars_, public)
     sut.sync(device)
-    if control is None:
+    if control is None and lead:
         prover.verify(warm, public)
     del warm, vars_, public
     sut.sync(device)
@@ -146,21 +181,34 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
     per_proof, proofs, publics, prove_s, verify_s, host_each = [], [], [], [], [], []
     failed = attempted = 0
     clock = GcClock()
+    if group is not None:
+        group.beat("window")
+        group.barrier()
     setup_s = time.time() - started
     with prof if prof is not None else contextlib.nullcontext():
         w0 = time.perf_counter()
-        while time.perf_counter() - w0 < seconds:
+
+        def more() -> bool:
+            inside = time.perf_counter() - w0 < seconds
+            return inside if group is None else group.go(inside)
+
+        while more():
             attempted += 1
             witness = pool[attempted % len(pool)]
             if trace:
                 sut.collect(True)
             try:
                 vars_, public = prover.assign(witness)
+                if group is not None:
+                    group.barrier()
                 h0 = host_sample(clock)
                 t0 = time.perf_counter()
                 with tracing_range(trace, tracing.PROVE):
                     proof = prover.prove(tape_seed(seed, attempted - 1), vars_, public)
                     sut.sync(device)
+                if group is not None:
+                    group.barrier()
+                    group.beat(f"window, iteration {attempted}")
                 t1 = time.perf_counter()
                 h1 = host_sample(clock)
                 host_each.append({k: h1[k] - h0[k] for k in h0})
@@ -171,11 +219,14 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
                 proofs.append(proof)
                 publics.append(witness[0])
                 t2 = time.perf_counter()
-                with tracing_range(trace, tracing.VERIFY):
-                    prover.verify(proof, public)
-                    sut.sync(device)
+                if lead:
+                    with tracing_range(trace, tracing.VERIFY):
+                        prover.verify(proof, public)
+                        sut.sync(device)
                 t3 = time.perf_counter()
             except Exception:  # noqa: BLE001 - a failed iteration is counted, not fatal
+                if group is not None and len(proofs) < attempted:
+                    raise   # the other ranks would wait for this one inside the prove
                 failed += 1
                 traceback.print_exc(file=sys.stderr)
                 continue
@@ -201,8 +252,24 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
     traced = tracing.read(prof) if prof is not None else {}
     del prof
     phases["trace_read_s"] = time.perf_counter() - t
+    busy_s = traced.get("busy_s", 0.0)
+    if group is not None:
+        every = group.gather({"peak": peak, "setup_peak": setup_peak, "busy_s": busy_s,
+                              "digests": [hashlib.sha256(r).digest() for r in raw],
+                              "device": str(device), "backend": group.mesh.backend})
+        group.beat("gathered")
+        group.close()
+        if not lead:
+            return None
+        peak = max(r["peak"] for r in every)
+        setup_peak = max(r["setup_peak"] for r in every)
+        busy_s = sum(r["busy_s"] for r in every) / len(every)
+        differ = sum(any(r["digests"][i:i + 1] != [d] for r in every)
+                     for i, d in enumerate(every[0]["digests"]))
     t = time.perf_counter()
     checks = check.Reference(inputs, traffic).judge(publics, raw, commitment, seed, failed)
+    if group is not None:
+        checks["rank_proofs_differ"] = {"value": differ, "limit": 0}
     phases["reference_s"] = time.perf_counter() - t
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 
@@ -227,7 +294,7 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "count": cell["chips"], "memory_peak_bytes": max(peak, setup_peak)}
     if trace:
-        dev["busy_s"] = traced.get("busy_s", 0.0)
+        dev["busy_s"] = busy_s
         dev["window_s"] = traced.get("window_s", window_s)
     out = {"correct": correct, "attempted": attempted, "failed": failed,
            "metrics": metrics, "device": dev}
@@ -243,6 +310,9 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, *,
                                for p in per_proof]
     out["phases"] = phases
     out["host_each"] = host_each
+    if group is not None:
+        out["ranks"] = [{"device": r["device"], "backend": r["backend"], "peak": r["peak"]}
+                        for r in every]
     out["checks"] = checks
     return out
 

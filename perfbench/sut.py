@@ -3,7 +3,9 @@
 
 ``Prover`` is built in set-up from the generator's inputs (the instance,
 the generators, the SRS and, for a SNARK, the encode) and then proves and
-verifies one witness per call, each in assignments of its own.
+verifies one witness per call, each in assignments of its own. Given the
+port's ``mesh`` (``join_mesh``), it encodes and proves sharded over the
+mesh's ranks, each rank calling it alike.
 """
 
 from __future__ import annotations
@@ -37,16 +39,33 @@ def _timed(fn, device):
     return out, time.perf_counter() - t
 
 
+def build_kernels(device: torch.device) -> None:
+    """Build the port's CUDA libraries that the checkout lacks."""
+    if device.type == "cuda":
+        kernels.build_all()
+
+
+def join_mesh(init_method: str, rank: int, world_size: int, device: torch.device,
+              backend: str):
+    """Join the port's process group as ``rank`` of ``world_size`` on
+    ``device`` over ``backend``; the port's mesh of that world."""
+    from spartan_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(init_method=init_method, rank=rank, world_size=world_size,
+                     backend=backend, device=device)
+    return make_mesh(world_size, device=device)
+
+
 class Prover:
     """Set-up of one cell's prover; ``setup_spans`` holds the set-up's
     timed parts (``encode_s``, ``srs_s``) in seconds."""
 
-    def __init__(self, inputs: dict, traffic: dict, device: torch.device):
+    def __init__(self, inputs: dict, traffic: dict, device: torch.device, mesh=None):
         self.kind = traffic["proof"]
         self.pcs = traffic.get("pcs")
+        self.mesh = mesh
         self.setup_spans: dict = {}
-        if device.type == "cuda":
-            kernels.build_all()
+        build_kernels(device)
         if "r1cs_path" in inputs:
             self._load_circom(inputs)
         else:
@@ -69,7 +88,7 @@ class Prover:
         self.gens = SNARKGens(n_cons, n_vars, n_in, self.max_nnz, pcs=self.pcs,
                               kzg_srs=srs, device=device)
         (self.comm, self.decomm), self.setup_spans["encode_s"] = _timed(
-            lambda: SNARK.encode(self.inst, self.gens), device)
+            lambda: SNARK.encode(self.inst, self.gens, mesh=mesh), device)
 
     def _load_circom(self, inputs: dict) -> None:
         r = R1CSFile.from_file(inputs["r1cs_path"])
@@ -98,9 +117,10 @@ class Prover:
     def prove(self, tape_seed: bytes, vars_: Assignment, inputs: Assignment):
         if self.kind == "nizk":
             return NIZK.prove(self.inst, vars_, inputs, self.gens, Transcript(LABEL),
-                              RandomTape(b"proof", seed=tape_seed))
+                              RandomTape(b"proof", seed=tape_seed), mesh=self.mesh)
         return SNARK.prove(self.inst, self.comm, self.decomm, vars_, inputs, self.gens,
-                           Transcript(LABEL), RandomTape(b"snark_proof", seed=tape_seed))
+                           Transcript(LABEL), RandomTape(b"snark_proof", seed=tape_seed),
+                           mesh=self.mesh)
 
     def verify(self, proof, inputs: Assignment) -> None:
         """The port's own verifier; raises if it rejects the proof."""

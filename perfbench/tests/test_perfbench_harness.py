@@ -1,9 +1,9 @@
 """The harness on the CPU: BENCHMARK.json keeps to the contract's forms, a
 configuration, a traffic mix and a per-layer metric added as new files only
 are found and run, a broken timed path comes out not correct (an altered
-answer, a replayed proof, the control), a traffic mix the harness does not
-run is refused, nothing on the chip's path loads JAX or the JAX package,
-and a run without a card prints no result."""
+answer, a replayed proof, the control, also across ranks), a traffic mix
+the harness does not run is refused, nothing on the chip's path loads JAX
+or the JAX package, and a run without a card prints no result."""
 
 from __future__ import annotations
 
@@ -36,9 +36,14 @@ def test_benchmark_json_forms():
     for c in spec["configs"]:
         assert os.path.exists(os.path.join(tiny.REPO, c["file"]))
         assert c["file"].startswith("perfbench/") and c["reduced"] == []
+    assert sum(w["chips"] == 4 for w in spec["workloads"]) <= max(1, len(spec["workloads"]) // 4)
+    pairs = [(w["config"], w["traffic"]) for w in spec["workloads"]]
+    assert len(pairs) == len(set(pairs))
     for w in spec["workloads"]:
-        assert NAME.match(w["config"]) and NAME.match(w["traffic"]) and w["chips"] == 1
+        assert NAME.match(w["config"]) and NAME.match(w["traffic"]) and w["chips"] in (1, 4)
+        assert 1 <= len(w["why"]) <= 200
         assert os.path.exists(os.path.join(bench.dir, "traffic", f"{w['traffic']}.json"))
+        assert bench.traffic(w).get("sharded", False) == (w["chips"] > 1)
         e2e = {m["name"] for m in bench.metrics(w, "end_to_end")}
         assert "setup_s" in e2e and len(e2e) >= 2 and bench.metrics(w, "per_layer")
     for m in spec["end_to_end"] + spec["per_layer"]:
@@ -176,9 +181,17 @@ def test_traffic_the_harness_does_not_run_is_refused(tmp_path):
         mix.pop(key)
         with open(os.path.join(root, "perfbench/traffic/hyrax.json"), "w") as f:
             json.dump(mix, f)
+    bench = tiny.read_bench(root)   # a sharded mix on one chip, an unsharded one on two
+    for w in bench["workloads"]:
+        if w["name"] in ("tiny.hyrax", "tiny.hyrax.mesh2"):
+            w["traffic"] = {"hyrax": "hyrax-sharded", "hyrax-sharded": "hyrax"}[w["traffic"]]
+    tiny.write_bench(root, bench)
+    for cell in ("tiny.hyrax", "tiny.hyrax.mesh2"):
+        with pytest.raises(harness.Failure):
+            harness.run(root, cell, 1, 0.1, False, device="cpu")
 
 
-@pytest.mark.parametrize("cell", ["tiny.hyrax", "tiny.nizk"])
+@pytest.mark.parametrize("cell", ["tiny.hyrax", "tiny.nizk", "tiny.hyrax.mesh2"])
 def test_control_is_not_correct(tmp_path, cell):
     out = harness.run(tiny.checkout(str(tmp_path)), cell, 9, 0.2, False, device="cpu",
                       control=break_witness(9))
@@ -217,10 +230,11 @@ def test_reference_loads_nothing_of_either_package():
     assert not mods & {"jax", "jaxlib", "flax", "spartan_tpu", "spartan_tpu_torch", "torch"}
 
 
-def test_no_card_no_result(tmp_path):
+@pytest.mark.parametrize("cell", ["keyless.hyrax", "keyless.hyrax.mesh4"])
+def test_no_card_no_result(tmp_path, cell):
     root = tiny.checkout(str(tmp_path))
     for cwd in (tiny.REPO, root):   # the checkout, and one without the program
-        out = subprocess.run([sys.executable, "perfbench/run.py", "--workload", "keyless.hyrax",
+        out = subprocess.run([sys.executable, "perfbench/run.py", "--workload", cell,
                               "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=cwd,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0 and out.stdout.strip() == ""

@@ -1,5 +1,6 @@
 """Tiny cells for the CPU tests: a copy of the benchmark in a temporary
-checkout, with configurations small enough to prove on the CPU."""
+checkout, with configurations small enough to prove on the CPU; the mesh
+cell runs as 2 gloo ranks on the CPU."""
 
 from __future__ import annotations
 
@@ -29,12 +30,13 @@ def checkout(tmp: str) -> str:
             json.dump(cfg, f)
         bench["configs"].append({"name": cfg["name"], "source": "test", "file": path,
                                  "reduced": [], "why": "test"})
-    for name, config, traffic, like in (("tiny.hyrax", "tiny-keyless", "hyrax", "keyless.hyrax"),
-                                        ("tiny.kzg", "tiny-keyless", "kzg", "keyless.kzg"),
-                                        ("tiny.nizk", "tiny-synth", "nizk",
-                                         "spartan-synth20.nizk")):
+    for name, config, traffic, chips, like in (
+            ("tiny.hyrax", "tiny-keyless", "hyrax", 1, "keyless.hyrax"),
+            ("tiny.kzg", "tiny-keyless", "kzg", 1, "keyless.kzg"),
+            ("tiny.nizk", "tiny-synth", "nizk", 1, "spartan-synth20.nizk"),
+            ("tiny.hyrax.mesh2", "tiny-keyless", "hyrax-sharded", 2, "keyless.hyrax.mesh4")):
         bench["workloads"].append({"name": name, "config": config, "traffic": traffic,
-                                   "chips": 1, "why": "test"})
+                                   "chips": chips, "why": "test"})
         for m in bench["end_to_end"] + bench["per_layer"]:
             if like in m.get("workloads", []):
                 m["workloads"].append(name)

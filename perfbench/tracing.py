@@ -56,13 +56,14 @@ def overlap(a, b) -> float:
 def read(prof, top: int = 10) -> dict:
     """What the traced window shows: ``busy_s`` and ``window_s`` of the
     device over the marked window, ``prove_busy_s`` and ``prove_s`` over the
-    proves, and the breakdown's ``device_ops`` and ``idle_gaps``."""
+    proves, the breakdown's ``device_ops`` and ``idle_gaps``, and the
+    ``events`` themselves, for readers that pick their own."""
     events = _events(prof)
     device = [(s, e) for _, d, s, e in events if d and e > s]
     proves = union([(s, e) for n, d, s, e in events if not d and n == PROVE])
     marks = union([(s, e) for n, d, s, e in events if not d and n in (PROVE, VERIFY)])
     busy = union(device)
-    out = {"device_events": len(device)}
+    out = {"device_events": len(device), "events": events}
     if not marks:
         return out
     window = [[marks[0][0], marks[-1][1]]]

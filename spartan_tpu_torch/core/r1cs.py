@@ -92,6 +92,17 @@ class R1CSShape:
         z += [0] * (2 * self.num_vars - len(z))
         return z
 
+    def build_z_device(self, vars_mont, inputs_mont):
+        """``build_z`` on the device from the encoded witness: [2*num_vars,
+        8] Montgomery limbs of (vars, 1, inputs, 0-padding), no host ints."""
+        n = self.num_vars
+        assert vars_mont.shape[0] == n
+        z = fr.zeros((2 * n,), vars_mont.device)
+        z[:n] = vars_mont
+        z[n] = fr.one((), vars_mont.device)
+        z[n + 1:n + 1 + inputs_mont.shape[0]] = inputs_mont
+        return z
+
     def is_sat(self, vars_: list[int], inputs: list[int], device=None) -> bool:
         assert len(vars_) == self.num_vars
         assert len(inputs) == self.num_inputs
@@ -112,6 +123,10 @@ class R1CSShape:
         assert len(z) == num_cols
         with Timer("witness_encode"):
             z_mont = F.encode_fr(z, device=device)
+        return self.multiply_vec_device(num_rows, z_mont)
+
+    def multiply_vec_device(self, num_rows: int, z_mont):
+        """(Az, Bz, Cz) for z given as [num_cols, 8] Montgomery limbs."""
         return (
             DensePolynomial(self.A.multiply_vec_device(num_rows, z_mont)),
             DensePolynomial(self.B.multiply_vec_device(num_rows, z_mont)),

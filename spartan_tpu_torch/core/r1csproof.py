@@ -91,24 +91,30 @@ class R1CSProof:
 
         dev = gens.device
         timer_commit = Timer("polycommit")
+        # the witness's one host encode; z = (vars, 1, inputs, 0...) is
+        # assembled from it on the device for each phase
         with Timer("witness_encode"):
             poly_vars = DensePolynomial.from_ints(vars_, device=dev)
+            inputs_mont = F.encode_fr(input_, device=dev)
+
+        def z_device():
+            with Timer("witness_encode"):
+                return inst.build_z_device(poly_vars.Z, inputs_mont)
+
         comm_vars, blinds_vars = commit_poly(poly_vars, gens.gens_pc, random_tape, mesh=mesh)
         comm_vars.append_to_transcript(b"poly_commitment", transcript)
         timer_commit.stop()
 
         timer_sc1 = Timer("prove_sc_phase_one")
-        with Timer("sc1_build_z"):
-            z = inst.build_z(vars_, input_)
+        num_cols = 2 * inst.num_vars
         num_rounds_x = log_2(inst.num_cons)
-        num_rounds_y = log_2(len(z))
+        num_rounds_y = log_2(num_cols)
         tau = transcript.challenge_vector(b"challenge_tau", num_rounds_x)
 
         with Timer("sc1_tau_eq_table"):
             poly_tau = DensePolynomial(EqPolynomial(tau).evals_device(dev))
         with Timer("sc1_spmv_AzBzCz"):
-            poly_Az, poly_Bz, poly_Cz = inst.multiply_vec(
-                inst.num_cons, len(z), z, device=dev)
+            poly_Az, poly_Bz, poly_Cz = inst.multiply_vec_device(inst.num_cons, z_device())
 
         # PHASE 1: ZK cubic sumcheck of sum_x tau(x) * (Az(x)Bz(x) - Cz(x))
         with Timer("sc1_zk_sumcheck"):
@@ -159,14 +165,14 @@ class R1CSProof:
         with Timer("sc2_eval_tables"):
             evals_rx = EqPolynomial(rx).evals_device(dev)
             evals_A, evals_B, evals_C = inst.compute_eval_table_sparse_device(
-                evals_rx, len(z))
+                evals_rx, num_cols)
             evals_ABC = k_rlc3(evals_A, evals_B, evals_C,
                                mle.encode_scalar(r_A, dev), mle.encode_scalar(r_B, dev),
                                mle.encode_scalar(r_C, dev))
 
         timer_sc2 = Timer("prove_sc_phase_two")
-        with Timer("sc2_encode_z"), Timer("witness_encode"):
-            poly_z = DensePolynomial.from_ints(z, device=dev)
+        with Timer("sc2_encode_z"):
+            poly_z = DensePolynomial(z_device())
         poly_ABC = DensePolynomial(evals_ABC)
         (sc_proof_phase2, ry, claims_phase2, blind_claim_postsc2) = \
             ZKSumcheckInstanceProof.prove_quad(

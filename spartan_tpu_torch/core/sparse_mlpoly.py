@@ -69,6 +69,26 @@ def _k_gather_mul3(vals, eq_x, eq_y, rows, cols):
     return fr.reduce_sum(t, axis=0)
 
 
+def _host_copy(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` kept on the host for copies to ``device``: page-locked for a
+    card (so that a copy needs no staging and does not block the host),
+    else ``t`` itself."""
+    if torch.device(device).type != "cuda":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
+def _device_key(device) -> str:
+    """One cache key per card: ``cuda`` (what ``device.resolve`` gives) and
+    ``cuda:0`` (a tensor's device) name the same one."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
 class SparseMatEntry:
     """One entry of a sparse matrix (sparse_mlpoly.rs:10-32)."""
 
@@ -123,23 +143,40 @@ class SparseMatPolynomial:
         self._cols_sorted = self.cols[self._order_c]
         self._dev: dict = {}   # device -> tensors (lazy)
         self._bnd_cache: dict = {}
+        # host copies of the two caches, kept across ``release_device``
+        self._host: dict = {}
+        self._bnd_host: dict = {}
+
+    def __getstate__(self):
+        """Pickles the arrays without the device and host copies, which
+        belong to this process."""
+        state = dict(self.__dict__)
+        for k in ("_dev", "_bnd_cache", "_host", "_bnd_host"):
+            state[k] = {}
+        return state
 
     @staticmethod
     def from_arrays(num_vars_x: int, num_vars_y: int, rows, cols, vals) -> "SparseMatPolynomial":
         return SparseMatPolynomial(num_vars_x, num_vars_y, rows=rows, cols=cols, vals=vals)
 
     def _device(self, device):
-        key = str(device)
+        """The device copies: on first use the values are encoded and every
+        tensor is also kept on the host, so that after ``release_device``
+        a copy from the host restores them (no encode)."""
+        key = _device_key(device)
         with Timer("matrix_device_copy"):
             if key not in self._dev:
-                t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                self._dev[key] = {
-                    "vals": F.encode_fr(self.vals, device=device),
-                    "rows": t(self.rows),
-                    "cols": t(self.cols),
-                    "perm_r": t(self._order_r),
-                    "perm_c": t(self._order_c),
-                }
+                host = self._host.get(key)
+                if host is None:
+                    t = lambda a: _host_copy(torch.from_numpy(np.ascontiguousarray(a)), device)
+                    host = self._host[key] = {
+                        "vals": _host_copy(F.encode_fr(self.vals, device=device), device),
+                        "rows": t(self.rows),
+                        "cols": t(self.cols),
+                        "perm_r": t(self._order_r),
+                        "perm_c": t(self._order_c),
+                    }
+                self._dev[key] = {k: h.to(device, non_blocking=True) for k, h in host.items()}
         return self._dev[key]
 
     def vals_device(self, device) -> torch.Tensor:
@@ -147,7 +184,8 @@ class SparseMatPolynomial:
         return self._device(device)["vals"]
 
     def release_device(self) -> None:
-        """Drop the cached device copies (rebuilt lazily on next use)."""
+        """Drop the cached device copies; the next use copies them back
+        from the host copies."""
         self._dev.clear()
         self._bnd_cache.clear()
 
@@ -161,14 +199,17 @@ class SparseMatPolynomial:
         return max(2, next_power_of_two(len(self.vals)))
 
     def _boundaries(self, axis: str, num_segments: int, device):
-        key = (axis, num_segments, str(device))
+        key = (axis, num_segments, _device_key(device))
         with Timer("matrix_device_copy"):
             if key not in self._bnd_cache:
-                keys = self._rows_sorted if axis == "row" else self._cols_sorted
-                starts = np.searchsorted(keys, np.arange(num_segments), side="left")
-                ends = np.searchsorted(keys, np.arange(num_segments), side="right")
-                self._bnd_cache[key] = (torch.from_numpy(starts).to(device),
-                                        torch.from_numpy(ends).to(device))
+                host = self._bnd_host.get(key)
+                if host is None:
+                    keys = self._rows_sorted if axis == "row" else self._cols_sorted
+                    host = self._bnd_host[key] = tuple(
+                        _host_copy(torch.from_numpy(
+                            np.searchsorted(keys, np.arange(num_segments), side=side)), device)
+                        for side in ("left", "right"))
+                self._bnd_cache[key] = tuple(h.to(device, non_blocking=True) for h in host)
         return self._bnd_cache[key]
 
     def multiply_vec_device(self, num_rows: int, z_mont) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Native host kernels: build-on-first-import C library with ctypes bindings.
 
-Provides ``keccak_f1600(state: bytearray)``, the circom ``.r1cs``
+Provides ``keccak_f1600(state: bytearray)``, STROBE's absorb of a whole
+message (``strobe_absorb_native``), the circom ``.r1cs``
 constraints parser of ``spartan_native.c`` (``r1cs_parse_native``) and the
 host G1/Fr backend of ``g1_host.c`` (the MSM oracle and the verifier's
 MSMs). Falls back to pure Python automatically if no compiler is present
@@ -92,6 +93,9 @@ def _load():
         return
     lib.keccak_f1600.argtypes = [ctypes.c_char_p]
     lib.keccak_f1600.restype = None
+    lib.strobe_absorb.argtypes = [ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint32,
+                                  ctypes.c_char_p, ctypes.c_uint64]
+    lib.strobe_absorb.restype = ctypes.c_uint32
     lib.r1cs_count.argtypes = [
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.POINTER(ctypes.c_int64)]
@@ -140,6 +144,16 @@ def keccak_f1600_bytes_native(state: bytearray) -> None:
     """In-place Keccak-f[1600] on a 200-byte state (C fast path)."""
     buf = (ctypes.c_char * 200).from_buffer(state)
     _lib.keccak_f1600(buf)
+
+
+def strobe_absorb_native(state: bytearray, pos: int, pos_begin: int,
+                         data: bytes) -> tuple[int, int]:
+    """STROBE-128's absorb of ``data`` into the 200-byte ``state`` at
+    ``pos`` (C fast path of ``Strobe128._absorb``, a permutation at every
+    rate boundary); returns the new ``(pos, pos_begin)``."""
+    buf = (ctypes.c_char * 200).from_buffer(state)
+    out = _lib.strobe_absorb(buf, pos, pos_begin, bytes(data), len(data))
+    return out & 0xFF, out >> 8
 
 
 def r1cs_parse_native(data: bytes, off: int, num_constraints: int, field_size: int):

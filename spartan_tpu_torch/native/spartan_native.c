@@ -4,6 +4,8 @@
  * paths that pure Python makes slow at keyless scale:
  *   - keccak_f1600: the STROBE/merlin transcript permutation (thousands of
  *     calls per proof; replaces spartan_tpu_torch/ops/keccak.py's Python loop)
+ *   - strobe_absorb: STROBE's absorb of a long message (the NIZK's shape
+ *     digest, tens of MB) in one call instead of a Python step a block
  *   - r1cs_count / r1cs_parse: the circom .r1cs constraints section
  *     (7.1M variable-length records for the keyless circuit)
  *
@@ -42,10 +44,9 @@ static inline uint64_t rol(uint64_t v, int n) {
     return n ? (v << n) | (v >> (64 - n)) : v;
 }
 
-/* state: 200 bytes, little-endian lanes, A[x + 5y] indexing */
-EXPORT void keccak_f1600(uint8_t *state) {
-    uint64_t a[25], b[25], c[5], d[5];
-    memcpy(a, state, 200);
+/* The permutation on 25 lanes, A[x + 5y] indexing */
+static inline void keccak_p(uint64_t a[25]) {
+    uint64_t b[25], c[5], d[5];
     for (int round = 0; round < 24; round++) {
         for (int x = 0; x < 5; x++)
             c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
@@ -62,7 +63,62 @@ EXPORT void keccak_f1600(uint8_t *state) {
                 a[x + 5 * y] = b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & b[(x + 2) % 5 + 5 * y]);
         a[0] ^= RC[round];
     }
+}
+
+/* state: 200 bytes, little-endian lanes */
+EXPORT void keccak_f1600(uint8_t *state) {
+    uint64_t a[25];
+    memcpy(a, state, 200);
+    keccak_p(a);
     memcpy(state, a, 200);
+}
+
+/* ------------------------------------------------------------------ */
+/* STROBE-128 absorb of a whole message                                */
+/* ------------------------------------------------------------------ */
+
+#define STROBE_R 166
+
+/* utils/strobe.py's Strobe128._absorb in one call: XOR each run up to the
+ * rate boundary into the state, and at the boundary run _run_f's framing
+ * (state[pos] ^= pos_begin, state[pos + 1] ^= 0x04, state[R + 1] ^= 0x80),
+ * permute and restart at pos = pos_begin = 0; a trailing partial block stays
+ * XORed in. The state is held as lanes for the whole message. Returns the
+ * new pos | pos_begin << 8 (pos < 166, pos_begin <= 166). */
+EXPORT uint32_t strobe_absorb(uint8_t *state, uint32_t pos, uint32_t pos_begin,
+                              const uint8_t *data, uint64_t len) {
+    uint64_t a[25];
+    uint8_t *st = (uint8_t *)a;
+    memcpy(a, state, 200);
+    while (len) {
+        uint64_t take = STROBE_R - pos;
+        if (take > len) take = len;
+        if (pos == 0 && take == STROBE_R) {
+            /* a whole block: 20 lanes and the low 6 bytes of lane 20 */
+            for (int i = 0; i < 20; i++) {
+                uint64_t w;
+                memcpy(&w, data + 8 * i, 8);
+                a[i] ^= w;
+            }
+            uint64_t w = 0;
+            memcpy(&w, data + 160, STROBE_R - 160);
+            a[20] ^= w;
+        } else {
+            for (uint64_t i = 0; i < take; i++) st[pos + i] ^= data[i];
+        }
+        pos += take;
+        data += take;
+        len -= take;
+        if (pos == STROBE_R) {
+            st[pos] ^= (uint8_t)pos_begin;
+            st[pos + 1] ^= 0x04;
+            st[STROBE_R + 1] ^= 0x80;
+            keccak_p(a);
+            pos = pos_begin = 0;
+        }
+    }
+    memcpy(state, a, 200);
+    return pos | (pos_begin << 8);
 }
 
 /* ------------------------------------------------------------------ */

@@ -12,6 +12,13 @@ from __future__ import annotations
 
 from spartan_tpu_torch.ops.keccak import keccak_f1600_bytes
 
+try:
+    from spartan_tpu_torch import native as _native
+
+    _bulk_absorb = _native.strobe_absorb_native if _native.available else None
+except ImportError:  # pragma: no cover
+    _bulk_absorb = None
+
 _STROBE_R = 166  # rate in bytes for security level 128: 1600/8 - 128/4 - 2
 
 FLAG_I = 1
@@ -47,10 +54,18 @@ class Strobe128:
         self.pos_begin = 0
 
     def _absorb(self, data: bytes) -> None:
-        # XOR whole runs up to the rate boundary at once (same bytes as the
-        # byte-at-a-time loop; multi-megabyte messages such as the R1CS
-        # shape digest would otherwise cost a Python iteration per byte)
+        # A message of a block or more (the R1CS shape digest: tens of MB)
+        # is absorbed in one native call; the transcript's short appends
+        # keep the loop below, which XORs whole runs up to the rate boundary
+        # at once (same bytes as the byte-at-a-time loop).
         i, n = 0, len(data)
+        if n >= _STROBE_R and _bulk_absorb is not None:
+            from spartan_tpu_torch.utils.timer import Timer  # torch: not at import
+
+            with Timer("strobe.bulk_absorb"):
+                self.pos, self.pos_begin = _bulk_absorb(self.state, self.pos,
+                                                        self.pos_begin, data)
+            return
         while i < n:
             take = min(_STROBE_R - self.pos, n - i)
             end = self.pos + take

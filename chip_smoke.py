@@ -52,10 +52,9 @@ Phases, each printing one JSON line (``"phase": ...``):
             layers give, ``tail_launches``) with its summed device and
             wrapper host time, H2's, T1's and T2's launches by entry, call
             site and size, and a corrupted proof
-            rejected; then the same prove on the per-round path
-            (``sumcheck_fused.FUSED = False``: no T1 or T2 launch) and on
-            the fused path again, whose proofs must equal the first, with
-            the three proves' times and ``product_layer_proof``;
+            rejected; then the same prove again, whose proof and T1/T2
+            launches must equal the first's, with both proves' times and
+            ``product_layer_proof``;
 7. api      the JAX package's public API through ``spartan_tpu_torch``'s
             exports, on the snark phase's instance: A, B, C rebuilt from
             their ``SparseMatEntry`` lists (3,145,728 entries in A) with
@@ -76,8 +75,8 @@ Phases, each printing one JSON line (``"phase": ...``):
             card (``srs_s`` and its phases apart from ``gens_s``), encode,
             prove (counts zeroed just before, read just after; all ten
             kernels must launch), verify (two pairings on the host), a
-            corrupted KZG opening rejected, the per-round and second fused
-            proves as in ``snark``; H4's launches exactly 3 (the witness
+            corrupted KZG opening rejected, the second prove as in
+            ``snark``; H4's launches exactly 3 (the witness
             commit, and each KZG MSM's 16 windows in one launch, 2 from
             ``kzg._commit_msm``); then H3, H4 and the sort timed
             on one bucket pass of its MSMs (2 digit rows of 2^25 points,
@@ -107,9 +106,10 @@ Phases, each printing one JSON line (``"phase": ...``):
             device tensors held to their local results;
 10. cross   with the host-path thresholds (and the fused tail's entry size)
             lowered so the device paths run, the NIZK at 2^10 and the SNARK
-            at 2^8 under Hyrax and under KZG made on the card, on the fused
-            and on the per-round path, equal the CPU ones, and the card's
-            runs launched the kernels, the CPU runs none;
+            at 2^8 under Hyrax and under KZG made on the card equal the CPU
+            ones (both on the fused product sumcheck, the CPU on its plain
+            versions), and the card's runs launched the kernels, the CPU
+            runs none;
 11. ingest  tests/fixtures/multiplier2 through ``load_circom`` and
             ``keyless_bench.run`` on the card and on the CPU under either
             PCS: equal proofs; the C parser's matrices equal the Python
@@ -1456,34 +1456,21 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
     if not rejected:
         raise AssertionError(f"a corrupted {pcs} SNARK proof was accepted")
 
-    # the same prove on the per-round path (the same bytes, no T1 or T2),
-    # then on the fused path again: the two paths in turns
-    turns = []
-    saved = SF.FUSED
-    for fused in (False, None):
-        SF.FUSED = fused
-        try:
-            K.reset_counts()
-            Timer.collect()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            again = SNARK.prove(inst, comm, decomm, vars_, inputs, gens,
-                                Transcript(b"chip_smoke"),
-                                RandomTape(b"chip_smoke", seed=bytes([5]) * 32))
-            torch.cuda.synchronize()
-            turns.append((time.perf_counter() - t, phases(), K.counts()))
-            Timer.collect(False)
-        finally:
-            SF.FUSED = saved
-        if serialize(again) != raw:
-            raise AssertionError(f"{pcs}: the {'per-round' if fused is False else 'fused'} "
-                                 f"prove's proof differs from the first one")
-        del again
-    counts_off = turns[0][2]
-    if counts_off["sc_transcript"] or counts_off["sc_tail"]:
-        raise AssertionError(f"{pcs}: the per-round prove launched T1/T2: {counts_off}")
-    if any(turns[1][2][k] != v for k, v in want.items()):
-        raise AssertionError(f"{pcs}: second fused prove's T1/T2 launches {turns[1][2]}")
+    # the same prove again: the same bytes and T1/T2 launches
+    K.reset_counts()
+    Timer.collect()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = SNARK.prove(inst, comm, decomm, vars_, inputs, gens, Transcript(b"chip_smoke"),
+                        RandomTape(b"chip_smoke", seed=bytes([5]) * 32))
+    torch.cuda.synchronize()
+    again_s, again_phases, again_counts = time.perf_counter() - t, phases(), K.counts()
+    Timer.collect(False)
+    if serialize(again) != raw:
+        raise AssertionError(f"{pcs}: the second prove's proof differs from the first one")
+    del again
+    if any(again_counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{pcs}: second prove's T1/T2 launches {again_counts}")
 
     def plp(ph):
         return sum(x["s"] for x in ph if x["label"] == "product_layer_proof")
@@ -1503,13 +1490,9 @@ def run_snark(torch, data, log2: int, pcs: str) -> tuple:
           "h4_launches_by_site": h4_sites,
           "t1_t2_launches": tails, "t1_t2_expected": want,
           "corrupted_rejected": True,
-          "fused_vs_per_round": {
-              "order": ["fused", "per-round", "fused"],
-              "prove_s": [prove_s, turns[0][0], turns[1][0]],
-              "product_layer_proof_s": [plp(prove_phases), plp(turns[0][1]),
-                                        plp(turns[1][1])],
-              "per_round_phases": turns[0][1], "per_round_launches": counts_off,
-              "same_proof": True},
+          "again": {"prove_s": [prove_s, again_s],
+                    "product_layer_proof_s": [plp(prove_phases), plp(again_phases)],
+                    "same_proof": True},
           "encode_phases": encode_phases, "encode_acc": encode_acc,
           "prove_phases": prove_phases, "prove_acc": acc, "verify_phases": verify_phases})
     ref = {"comm": serialize(comm), "proof": raw, "encode_s": encode_s, "prove_s": prove_s,
@@ -2130,8 +2113,7 @@ def run_ingest(torch, here: str) -> None:
 
 def run_cross(torch, log2: int, snark_log2: int) -> None:
     """Device-path proofs on the card == the same proofs on the CPU: the
-    NIZK, and the SNARK with either derefs commitment, the latter on the
-    card both on the fused and on the per-round product sumchecks."""
+    NIZK, and the SNARK with either derefs commitment."""
     from spartan_tpu_torch.config import SpartanConfig
     from spartan_tpu_torch.core import hostpath as HP
     from spartan_tpu_torch.core import sumcheck_fused as SF
@@ -2182,26 +2164,20 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
     for what, fn in (("nizk", nizk), ("snark", snark),
                      ("snark_kzg", lambda device: snark(device, "kzg"))):
         saved = (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N,
-                 F._HOST_CONVERT_N, SF.SMALL_BUCKET_N, HP.HOST_BULLET_N, SF.FUSED)
+                 F._HOST_CONVERT_N, SF.SMALL_BUCKET_N, HP.HOST_BULLET_N)
         (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N,
          SF.SMALL_BUCKET_N, HP.HOST_BULLET_N) = lowered[what]
-        # the card on the fused path (its default), the card on the
-        # per-round path, the CPU (per-round by default)
-        runs = (("cuda", None), ("cuda", False), ("cpu", None)) if what != "nizk" \
-            else (("cuda", None), ("cpu", None))
         try:
             out = {}
-            for device, fused in runs:
-                SF.FUSED = fused
+            for device in ("cuda", "cpu"):
                 K.reset_counts()
                 t = time.perf_counter()
                 res = fn(device)
                 torch.cuda.synchronize()
-                key = device if fused is None else f"{device}_per_round"
-                out[key] = (serialize(res), time.perf_counter() - t, K.counts())
+                out[device] = (serialize(res), time.perf_counter() - t, K.counts())
         finally:
             (HP.HOST_N, HP.HOST_MSM_N, HP.HOST_COMMIT_POINTS, M.LADDER_N, F._HOST_CONVERT_N,
-             SF.SMALL_BUCKET_N, HP.HOST_BULLET_N, SF.FUSED) = saved
+             SF.SMALL_BUCKET_N, HP.HOST_BULLET_N) = saved
         same = all(v[0] == out["cpu"][0] for v in out.values())
         emit({"phase": "cross", "what": what, "log2": log2 if what == "nizk" else snark_log2,
               "identical": same, "sha256": hashlib.sha256(out["cuda"][0]).hexdigest(),
@@ -2209,16 +2185,11 @@ def run_cross(torch, log2: int, snark_log2: int) -> None:
               **{f"{k}_launches": v[2] for k, v in out.items()}})
         if not same:
             raise AssertionError(f"{what}: the card's proofs differ from the CPU proof")
-        # the card's fused run went through every kernel, its per-round run
-        # through S2 and not T1/T2, the CPU run through none
+        # the card's run went through every kernel, the CPU run through none
         need = NIZK_KERNELS if what == "nizk" else tuple(SOURCES)
         if min(out["cuda"][2][k] for k in need) <= 0 or max(out["cpu"][2].values()) > 0:
             raise AssertionError(f"{what} cross check launches: {out['cuda'][2]}, "
                                  f"{out['cpu'][2]}")
-        per_round = out.get("cuda_per_round")
-        if per_round and (per_round[2]["sc_round_prod"] <= 0 or per_round[2]["sc_transcript"]
-                          or per_round[2]["sc_tail"]):
-            raise AssertionError(f"{what} per-round launches: {per_round[2]}")
 
 
 if __name__ == "__main__":

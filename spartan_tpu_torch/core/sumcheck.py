@@ -9,26 +9,24 @@ challenge and computes the next round's evaluations in one launch (S2 for
 the product layers, S3 for ZK phase 1, S4 for ZK phase 2; S1 folds alone
 where the next round runs elsewhere). Tables stay in natural order.
 
-On a card the batched product sumcheck hands all its rounds to the fused
-driver (``core/sumcheck_fused.py``): the
-challenges are squeezed on the device (T1 above ``SMALL_BUCKET_N``
-entries, the whole tail in one T2 launch) and the host replays the
-transcript once at the end. Only the per-round path (on the CPU by
-default, or with ``SPARTAN_TPU_FUSED=0``) and the ZK sumchecks drive the
-host transcript round by round: the host reads each round's evaluations
-and the variants' tiny per-round algebra, the ZK ones also committing each
-round polynomial and proving the two claims with a batched
-DotProductProof; there, tables of at most ``hostpath.HOST_N`` entries
-finish their rounds on the host in Python ints.
+The batched product sumcheck has one driver on every device: it hands its
+rounds to ``core/sumcheck_fused.py``, where the challenges are squeezed
+on the device (T1 above ``SMALL_BUCKET_N`` entries, the whole tail in one
+T2 launch) and the host replays the transcript once at the end; on a CPU
+tensor the kernels' plain versions run the same steps. The ZK sumchecks
+drive the host transcript round by round: the host reads each round's
+evaluations, commits each round polynomial and proves the two claims with
+a batched DotProductProof; there, tables of at most ``hostpath.HOST_N``
+entries finish their rounds on the host in Python ints.
 
 With ``mesh`` (``parallel/``), large tables are strided-sharded over the
 ranks (``_MeshTables``, ``_BatchedMeshTables``): each round's evaluations
 are the ranks' partials on the same kernels joined by one exact psum, and
-the host transcript is driven round by round on every rank. The tables are
-gathered once they shrink to ``HOST_N`` entries (or below twice the rank
-count), as in the JAX package; a batched product sumcheck on a card leaves
-the mesh already at ``sumcheck_fused.SMALL_BUCKET_N`` entries, where the
-fused path's T2 takes every remaining round in one launch. The proof
+the host transcript is driven round by round on every rank. The ZK tables
+are gathered once they shrink to ``HOST_N`` entries (or below twice the
+rank count), as in the JAX package; a batched product sumcheck leaves the
+mesh at the larger of ``HOST_N`` and ``sumcheck_fused.SMALL_BUCKET_N``
+entries and hands the remaining rounds to the fused driver. The proof
 bytes are the single-device ones either way.
 """
 
@@ -94,15 +92,12 @@ class SumcheckInstanceProof:
         poly_vec_par: (A_list, B_list, C_shared) DensePolynomials; the
         "par" instances share C (the eq table). poly_vec_seq: (A_list,
         B_list, C_list) with per-instance C. All tables have equal length.
-        A device round is one S2 launch over every instance (the shared C
-        is folded once by S1 first); the evaluations come back in the
-        order the transcript batches them (sumcheck.rs:229-241). On a card
-        (unless ``SF.FUSED`` says otherwise) every round runs in the fused
-        driver, chosen before the host-int switch at ``HOST_N`` as in the
-        JAX package (``sumcheck.py:640-657``). With ``mesh`` the rounds
-        above the mesh's exit size run sharded first (the JAX package
-        checks the mesh before the fused tail too); the gathered tables
-        then go on as above. Every input table is consumed (its ``Z`` is
+        Every round runs in the fused driver
+        (``SF.prove_cubic_batched_fused``). With ``mesh`` the rounds above
+        the mesh's exit size run sharded first (the JAX package checks the
+        mesh before the fused tail too), each round's evaluations read by
+        the host, which squeezes the challenge; the gathered tables then go
+        to the fused driver. Every input table is consumed (its ``Z`` is
         dropped once folded).
         Returns (proof, r, (A_par(r), B_par(r), C(r)), (A_seq(r),
         B_seq(r), C_seq(r))).
@@ -116,90 +111,46 @@ class SumcheckInstanceProof:
         TB = [p.Z for p in B_par] + [p.Z for p in B_seq]
         TC = [p.Z for p in C_seq]
         Cp = C_par.Z
-        dev = Cp.device
         # consumed inputs: from here the tables live only in TA/TB/TC/Cp
         for p in (*A_par, *B_par, C_par, *A_seq, *B_seq, *C_seq):
             p.Z = None
 
-        fused = num_rounds > 0 and SF.fused_enabled(dev)
-        # on the fused path the mesh hands over where T2 takes the tail
-        leave = max(HP.HOST_N, SF.SMALL_BUCKET_N) if fused else HP.HOST_N
-        mesh_t = None
-        n0 = Cp.shape[0]
-        if mesh is not None and mesh.size > 1 and n0 > leave and \
-                n0 >= 2 * mesh.size and n0 % (2 * mesh.size) == 0:
-            mesh_t = _BatchedMeshTables(mesh, TA, TB, TC, Cp, nP, leave)
-            TA = TB = TC = Cp = None
-
         e = claim % FR_MOD
         r: list[int] = []
         polys: list[CompressedUniPoly] = []
-        host = None      # (HA, HB, HCp, HCs) host-int tables for the tail
-        pending = None   # device evals [3I, 8] of the current round
-        cur_n = n0
-        for j in range(num_rounds):
-            if mesh_t is None and fused:
-                # every remaining round (all of them without a mesh)
-                polys_f, r_f, claims_prod, claims_dotp = SF.prove_cubic_batched_fused(
-                    e, num_rounds - j, TA, TB, TC, Cp, nP, coeffs, transcript)
-                polys += polys_f
-                r += r_f
-                return SumcheckInstanceProof(polys), r, claims_prod, claims_dotp
-            if mesh_t is None and host is None and cur_n <= HP.HOST_N:
-                dec = mle.decode_tables(TA + TB + [Cp] + TC)
-                host = (dec[:I], dec[I:2 * I], dec[2 * I], dec[2 * I + 1:])
-                TA = TB = TC = Cp = None
-            if host is not None:
-                HA, HB, HCp, HCs = host
-                ev = [HP.cubic_prod_evals(HA[k], HB[k], HCp if k < nP else HCs[k - nP])
-                      for k in range(I)]
-                ev0, ev2, ev3 = ([t[i] for t in ev] for i in range(3))
-            else:
-                if pending is None:
-                    pending = mesh_t.evals() if mesh_t is not None else \
-                        SK.prod_evals(TA, TB, [Cp] * nP + TC)
+        # the mesh hands over where T2 takes the tail
+        leave = max(HP.HOST_N, SF.SMALL_BUCKET_N)
+        n0 = Cp.shape[0]
+        if mesh is not None and mesh.size > 1 and n0 > leave and \
+                n0 >= 2 * mesh.size and n0 % (2 * mesh.size) == 0:
+            dev = Cp.device
+            mesh_t = _BatchedMeshTables(mesh, TA, TB, TC, Cp, nP, leave)
+            TA = TB = TC = Cp = None
+            pending = mesh_t.evals()
+            while pending is not None:
                 vals = F.decode_fr(pending)
-                ev0, ev2, ev3 = vals[0::3], vals[1::3], vals[2::3]
-            c0 = sum(ev0[i] * coeffs[i] for i in range(I)) % FR_MOD
-            c2 = sum(ev2[i] * coeffs[i] for i in range(I)) % FR_MOD
-            c3 = sum(ev3[i] * coeffs[i] for i in range(I)) % FR_MOD
-            poly = UniPoly.from_evals([c0, (e - c0) % FR_MOD, c2, c3])
-            poly.append_to_transcript(b"poly", transcript)
-            r_j = transcript.challenge_scalar(b"challenge_nextround")
-            r.append(r_j)
-            if mesh_t is not None:
+                c0, c2, c3 = (sum(vals[3 * i + k] * coeffs[i] for i in range(I)) % FR_MOD
+                              for k in range(3))
+                poly = UniPoly.from_evals([c0, (e - c0) % FR_MOD, c2, c3])
+                poly.append_to_transcript(b"poly", transcript)
+                r_j = transcript.challenge_scalar(b"challenge_nextround")
                 r_dev = mle.encode_scalar(r_j, dev)
                 if mesh_t.can_step():
                     pending = mesh_t.step(r_dev)
                 else:
                     TA, TB, TC, Cp = mesh_t.fold_gather(r_dev)
-                    mesh_t = None
                     pending = None
-            elif host is not None:
-                HA, HB, HCp, HCs = host
-                host = ([HP.fold_top(t, r_j) for t in HA], [HP.fold_top(t, r_j) for t in HB],
-                        HP.fold_top(HCp, r_j), [HP.fold_top(t, r_j) for t in HCs])
-            else:
-                r_dev = mle.encode_scalar(r_j, dev)
-                if cur_n // 2 <= max(HP.HOST_N, 1):
-                    # the host takes the next round (or none is left): fold only
-                    out = SK.fold(TA + TB + [Cp] + TC, r_dev)
-                    TA, TB, Cp, TC = out[:I], out[I:2 * I], out[2 * I], out[2 * I + 1:]
-                    pending = None
-                else:
-                    (Cp,) = SK.fold([Cp], r_dev)
-                    TA, TB, Cs, pending = SK.prod_step(
-                        TA, TB, [Cp] * nP + TC, r_dev, [False] * nP + [True] * nS)
-                    TC = Cs[nP:]
-            cur_n //= 2
-            e = poly.evaluate(r_j)
-            polys.append(poly.compress())
+                r.append(r_j)
+                e = poly.evaluate(r_j)
+                polys.append(poly.compress())
 
-        if host is not None:
-            HA, HB, HCp, HCs = host
-            finals = [t[0] for t in HA + HB] + [HCp[0]] + [t[0] for t in HCs]
-        else:
-            finals = F.decode_fr(mle.first_rows(TA + TB + [Cp] + TC))
+        if num_rounds > len(r):
+            polys_f, r_f, claims_prod, claims_dotp = SF.prove_cubic_batched_fused(
+                e, num_rounds - len(r), TA, TB, TC, Cp, nP, coeffs, transcript)
+            return SumcheckInstanceProof(polys + polys_f), r + r_f, claims_prod, claims_dotp
+
+        # no rounds: the one-entry tables are the claims
+        finals = F.decode_fr(mle.first_rows(TA + TB + [Cp] + TC))
         finals_A, finals_B = finals[:I], finals[I:2 * I]
         claims_prod = (finals_A[:nP], finals_B[:nP], finals[2 * I])
         claims_dotp = (finals_A[nP:], finals_B[nP:], finals[2 * I + 1:])

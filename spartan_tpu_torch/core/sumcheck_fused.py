@@ -1,11 +1,10 @@
 """The fused batched product sumcheck: the challenges stay on the device.
 
-Counterpart of ``spartan_tpu/core/sumcheck_fused.py``. The per-round
-driver (``core/sumcheck.py``) reads every round's evaluations back to the
-host, squeezes the challenge from its host transcript and sends r back: one
-synchronisation a round, and at small sizes whole rounds of Python ints.
-Here the merlin sponge lives on the device (``ops/transcript_device.py``),
-so the challenge -> fold -> evaluations recurrence never leaves it:
+Counterpart of ``spartan_tpu/core/sumcheck_fused.py``, and the only driver
+of ``SumcheckInstanceProof.prove_cubic_batched``'s unsharded rounds, on
+every device. The merlin sponge lives on the device
+(``ops/transcript_device.py``), so the challenge -> fold -> evaluations
+recurrence never leaves it:
 
 * each round above ``SMALL_BUCKET_N`` entries is S2's evaluations, then
   T1 (``csrc/sc_transcript.cu``: the round's cubic absorbed, r squeezed
@@ -21,13 +20,12 @@ so the challenge -> fold -> evaluations recurrence never leaves it:
 The JAX design (one ``lax.scan`` over bit-reversed, zero-padded, stacked
 buffers, for the TPU's compile costs) is not copied: the tables stay in
 natural order and the rounds above the tail are the per-round kernels.
-On a CPU tensor the same driver runs the kernels' plain versions. There is
-no fallback: a kernel that fails to build or launch fails the prove.
+On a CPU tensor the same driver runs the kernels' plain versions
+(``round_transcript_plain``, ``prod_tail_plain``). There is no fallback: a
+kernel that fails to build or launch fails the prove.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -37,18 +35,6 @@ from spartan_tpu_torch.ops import sumcheck_kernels as SK
 from spartan_tpu_torch.ops import transcript_device as TD
 from spartan_tpu_torch.ops.fields_host import FR_MOD
 from spartan_tpu_torch.ops.limbs import NUM_LIMBS
-
-# tri-state: True/False force the fused path on/off; None = auto (the
-# tables are on a CUDA card, where the per-round synchronisation costs)
-FUSED = None if os.environ.get("SPARTAN_TPU_FUSED", "auto") == "auto" \
-    else os.environ.get("SPARTAN_TPU_FUSED") == "1"
-
-
-def fused_enabled(device) -> bool:
-    if FUSED is not None:
-        return FUSED
-    return torch.device(device).type == "cuda"
-
 
 # tables of at most this many entries run their remaining rounds in T2
 # (chosen on the H100 with chip_smoke.py's tail_threshold, T2 entering at
@@ -63,7 +49,7 @@ def prove_cubic_batched_fused(claim: int, num_rounds: int, TA, TB, TC, Cp, nP: i
     TA/TB: per-instance tables (par then seq), TC: the seq instances' own
     C tables, Cp: the par instances' shared C, all [2^num_rounds, 8] on
     one device. The tables are consumed. Returns (compressed_polys, r,
-    claims_prod, claims_dotp) as the per-round driver does."""
+    claims_prod, claims_dotp), the claims as prove_cubic_batched returns them."""
     nS = len(TC)
     I = nP + nS
     dev = Cp.device

@@ -238,6 +238,19 @@ def field_ew_plain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
     return out.reshape(shape)
 
 
+def fr_mul_plain(a, b):
+    """Fr product by H1's plain version (the kernels' plain versions)."""
+    return field_ew_plain("mul", FR, a, b)
+
+
+def fr_add_plain(a, b):
+    return field_ew_plain("add", FR, a, b)
+
+
+def fr_sub_plain(a, b):
+    return field_ew_plain("sub", FR, a, b)
+
+
 # ---------------------------------------------------------------------------
 # kernel H1 (csrc/field_ew.cu)
 # ---------------------------------------------------------------------------
@@ -529,5 +542,6 @@ def decode_fq(arr) -> list[int]:
 
 
 __all__ = ["FR", "FQ", "FieldSpec", "fr", "fq", "field_ew", "field_ew_plain",
+           "fr_mul_plain", "fr_add_plain", "fr_sub_plain",
            "launch_field_ew", "encode_fr", "decode_fr", "encode_fq", "decode_fq",
            "encode_small_uints", "encode_canonical", "reduce_columns"]

@@ -45,6 +45,9 @@ import torch
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import kernels as K
 from spartan_tpu_torch.ops import transcript_device as TD
+from spartan_tpu_torch.ops.field import fr_add_plain as _add
+from spartan_tpu_torch.ops.field import fr_mul_plain as _mul
+from spartan_tpu_torch.ops.field import fr_sub_plain as _sub
 from spartan_tpu_torch.ops.limbs import NUM_LIMBS
 
 fr = F.fr
@@ -60,18 +63,6 @@ TAIL_CLUSTER_N = 128   # T2 on tables of at least this many entries runs as a cl
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-
-def _mul(a, b):
-    return F.field_ew_plain("mul", F.FR, a, b)
-
-
-def _add(a, b):
-    return F.field_ew_plain("add", F.FR, a, b)
-
-
-def _sub(a, b):
-    return F.field_ew_plain("sub", F.FR, a, b)
-
 
 def _halves(T):
     """Low and high halves of tables [..., n, 8] (the top variable)."""

@@ -2,8 +2,9 @@
 
 Counterpart of ``spartan_tpu/ops/transcript_device.py``. The host
 transcript (``utils/transcript.py``) needs every sumcheck round's
-evaluations on the host before it can squeeze the next challenge, so the
-per-round driver pays one device-to-host read a round. With the sponge on
+evaluations on the host before it can squeeze the next challenge, so a
+driver on it (the ZK sumchecks, a mesh's rounds) pays one device-to-host
+read a round. With the sponge on
 the device the fused sumcheck (``core/sumcheck_fused.py``) keeps the
 challenge -> fold -> evaluations recurrence on the card; the host replays
 the round polynomials through its own transcript afterwards and asserts
@@ -38,6 +39,9 @@ import torch
 
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import kernels as K
+from spartan_tpu_torch.ops.field import fr_add_plain as _add
+from spartan_tpu_torch.ops.field import fr_mul_plain as _mul
+from spartan_tpu_torch.ops.field import fr_sub_plain as _sub
 from spartan_tpu_torch.ops.keccak import _ROT, _ROUND_CONSTANTS
 from spartan_tpu_torch.ops.limbs import NUM_LIMBS, ints_to_limbs, to_tensor
 
@@ -250,18 +254,6 @@ class DynTranscript:
 # ---------------------------------------------------------------------------
 # field-element byte codecs ([8] int32 Montgomery limbs)
 # ---------------------------------------------------------------------------
-
-def _mul(a, b):
-    return F.field_ew_plain("mul", F.FR, a, b)
-
-
-def _add(a, b):
-    return F.field_ew_plain("add", F.FR, a, b)
-
-
-def _sub(a, b):
-    return F.field_ew_plain("sub", F.FR, a, b)
-
 
 _P = F.FR.modulus
 

@@ -30,6 +30,8 @@ from spartan_tpu_torch.core import commitments as CM
 from spartan_tpu_torch.core import hostpath as HP
 from spartan_tpu_torch.ops.fields_host import FR_MOD
 
+from torch_threads import _one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # spartan_tpu's export table (spartan_tpu/__init__.py)

@@ -30,6 +30,8 @@ from spartan_tpu_torch.ops import transcript_device as TD
 from spartan_tpu_torch.ops.keccak import keccak_f1600
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "spartan_tpu_torch", "csrc")
 

@@ -26,14 +26,7 @@ from spartan_tpu_torch.utils.serialization import deserialize, serialize
 from spartan_tpu_torch.utils.timer import Timer
 from spartan_tpu_torch.utils.transcript import Transcript
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the plain versions are many small tensor ops."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -19,6 +19,8 @@ from spartan_tpu_torch.ops import curve_host as CH
 from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import fields_host as fh
 
+from torch_threads import _one_thread  # noqa: F401
+
 RNG = np.random.default_rng(7)
 SCALARS = [int(s) for s in RNG.integers(1, 1 << 62, size=12)]
 PTS = [CH.scalar_mul(s, CH.GEN) for s in SCALARS]

@@ -23,18 +23,9 @@ from spartan_tpu_torch.utils.random_tape import RandomTape
 from spartan_tpu_torch.utils.serialization import serialize
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 P = F.FR.modulus
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module: the plain versions are many
-    small tensor ops, which a parallel test run slows by tens of times when
-    each op waits for threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

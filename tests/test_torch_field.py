@@ -16,6 +16,8 @@ from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import fields_host as fh
 from spartan_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints, to_tensor
 
+from torch_threads import _one_thread  # noqa: F401
+
 R = 1 << 256
 SPECS = {"Fr": F.FR, "Fq": F.FQ}
 

@@ -27,6 +27,8 @@ from spartan_tpu_torch.utils.random_tape import RandomTape
 from spartan_tpu_torch.utils.serialization import serialize
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
 R1CS = os.path.join(FIXDIR, "multiplier2.r1cs")
 WTNS = os.path.join(FIXDIR, "multiplier2.wtns")

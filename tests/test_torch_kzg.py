@@ -28,6 +28,8 @@ from spartan_tpu_torch.ops.limbs import limbs16_to_32
 from spartan_tpu_torch.pcs import kzg as PK
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 P = F.FR.modulus
 SEED = 12345
 

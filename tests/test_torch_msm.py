@@ -18,18 +18,9 @@ from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops import fields_host as fh
 from spartan_tpu_torch.ops import msm as M
 
+from torch_threads import _one_thread  # noqa: F401
+
 RNG = np.random.default_rng(11)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module: the plain versions are many
-    small tensor ops, which a parallel test run slows by tens of times when
-    each op waits for threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 BASE = [CH.scalar_mul(int(s), CH.GEN) for s in RNG.integers(1, 1 << 60, size=24)]

@@ -28,6 +28,8 @@ from spartan_tpu_torch.utils.random_tape import RandomTape
 from spartan_tpu_torch.utils.serialization import deserialize, serialize
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 LABEL = b"torch_nizk"
 TAPE_SEED = bytes([7]) * 32
 

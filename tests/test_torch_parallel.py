@@ -25,6 +25,8 @@ from spartan_tpu_torch.ops import field as F
 from spartan_tpu_torch.ops.fields_host import FR_MOD
 from spartan_tpu_torch.parallel.launch import spawn
 
+from torch_threads import _one_thread  # noqa: F401
+
 D = 4
 N_TABLE = 32          # sumcheck round / strided tables
 TREE_LEAVES = 256
@@ -76,7 +78,7 @@ class _Engaged:
         setattr(owner, name, counted)
 
 
-def _snark_in_rank(mesh, pcs: str, srs_path: str, fused: bool) -> dict:
+def _snark_in_rank(mesh, pcs: str, srs_path: str) -> dict:
     from spartan_tpu_torch.config import SpartanConfig
     from spartan_tpu_torch.core import hostpath as HP
     from spartan_tpu_torch.core import sumcheck_fused as SF
@@ -86,7 +88,7 @@ def _snark_in_rank(mesh, pcs: str, srs_path: str, fused: bool) -> dict:
     from spartan_tpu_torch.utils.serialization import serialize
     from spartan_tpu_torch.utils.transcript import Transcript
 
-    HP.HOST_N, SF.FUSED, SF.SMALL_BUCKET_N = 4, fused, 8
+    HP.HOST_N, SF.SMALL_BUCKET_N = 4, 8
     seen = _Engaged()
     inst, vars_, inputs, nnz = synthetic(SNARK_LOG2, seed=3)
     n = inst.inst.num_cons
@@ -166,8 +168,8 @@ def _world4(mesh, srs_path: str) -> dict:
                       c=4)
     out["msm"] = (CU.decode_points(tuple(a.unsqueeze(0) for a in acc))[0], pts)
 
-    out["snark_hyrax"] = _snark_in_rank(mesh, "hyrax", srs_path, False)
-    out["snark_kzg"] = _snark_in_rank(mesh, "kzg", srs_path, True)
+    out["snark_hyrax"] = _snark_in_rank(mesh, "hyrax", srs_path)
+    out["snark_kzg"] = _snark_in_rank(mesh, "kzg", srs_path)
     return out
 
 
@@ -349,9 +351,10 @@ def test_backend_rule():
 
 @pytest.mark.parametrize("pcs", ["hyrax", "kzg"])
 def test_sharded_snark_bit_identical(worlds, srs_path, pcs):
-    """The SNARK proved by 4 ranks (Hyrax on the per-round path, KZG on
-    the fused one) equals the port's and the JAX package's single-device
-    commitment and proof, the same on every rank, and verifies."""
+    """The SNARK proved by 4 ranks (each product sumcheck handed from the
+    mesh to the fused driver) equals the port's and the JAX package's
+    single-device commitment and proof, the same on every rank, and
+    verifies."""
     from spartan_tpu_torch.core.r1cs import R1CSCommitment
     from spartan_tpu_torch.snark import SNARK
     from spartan_tpu_torch.utils.serialization import deserialize

@@ -39,6 +39,8 @@ from spartan_tpu_torch.utils.random_tape import RandomTape
 from spartan_tpu_torch.utils.serialization import deserialize, serialize
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 LABEL = b"torch_snark"
 TAPE_SEED = bytes([6]) * 32
 P = F.FR.modulus
@@ -100,18 +102,46 @@ def test_proof_bytes_match_jax(snarks):
     assert serialize(snarks["proof"]) == jax_serialize(snarks["jproof"])
 
 
-def test_fused_proof_bytes_match_jax(snarks, monkeypatch):
-    """Proved again with the fused product-sumcheck path (the device
-    transcript and the tail on their plain versions), the proof has the
-    per-round path's bytes, which are spartan_tpu's."""
+def test_second_prove_bytes_match_jax(snarks, monkeypatch):
+    """Proved again from the same instance (its matrices' encodings kept
+    since the first prove), commitment, gens and tape seed, with every ZK
+    round and MLE on its device path (host tail lowered to 2), the proof
+    has the first prove's bytes, which are spartan_tpu's."""
     from spartan_tpu.utils.serialization import serialize as jax_serialize
 
-    monkeypatch.setattr(SF, "FUSED", True)
     monkeypatch.setattr(HP, "HOST_N", 2)
     proof = SNARK.prove(snarks["inst"], snarks["comm"], snarks["decomm"], snarks["vars"],
                         snarks["inputs"], snarks["gens"], Transcript(LABEL),
                         RandomTape(b"snark_proof", seed=TAPE_SEED))
     assert serialize(proof) == serialize(snarks["proof"]) == jax_serialize(snarks["jproof"])
+
+
+def test_cpu_prove_runs_the_fused_driver(snarks, monkeypatch):
+    """A CPU prove hands every batched product sumcheck that has rounds to
+    the fused driver (T1's and T2's plain versions), the driver the card
+    runs, and its proof has the fixture's bytes."""
+    from spartan_tpu_torch.core.sumcheck import SumcheckInstanceProof
+
+    calls = {"batched": 0, "fused": 0}
+    batched, fused = SumcheckInstanceProof.prove_cubic_batched, SF.prove_cubic_batched_fused
+
+    def counted_batched(claim, num_rounds, *a, **k):
+        calls["batched"] += num_rounds > 0
+        return batched(claim, num_rounds, *a, **k)
+
+    def counted_fused(*a, **k):
+        calls["fused"] += 1
+        return fused(*a, **k)
+
+    monkeypatch.setattr(SumcheckInstanceProof, "prove_cubic_batched",
+                        staticmethod(counted_batched))
+    monkeypatch.setattr(SF, "prove_cubic_batched_fused", counted_fused)
+    proof = SNARK.prove(snarks["inst"], snarks["comm"], snarks["decomm"], snarks["vars"],
+                        snarks["inputs"], snarks["gens"], Transcript(LABEL),
+                        RandomTape(b"snark_proof", seed=TAPE_SEED))
+    assert calls["batched"] > 0
+    assert calls["fused"] == calls["batched"]
+    assert serialize(proof) == serialize(snarks["proof"])
 
 
 def test_msm_window_proof_bytes_match_jax(snarks, monkeypatch):

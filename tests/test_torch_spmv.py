@@ -13,6 +13,8 @@ import torch
 from spartan_tpu_torch.core import sparse_mlpoly as SM
 from spartan_tpu_torch.ops import field as F
 
+from torch_threads import _one_thread  # noqa: F401
+
 P = F.FR.modulus
 
 

@@ -21,6 +21,8 @@ from spartan_tpu_torch.utils.strobe import Strobe128
 from spartan_tpu_torch.utils.timer import Timer
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 LENGTHS = (0, 1, 165, 166, 167, 331, 332, 333, 100_003)
 STARTS = (0, 1, 100, 165)
 

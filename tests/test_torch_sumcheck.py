@@ -26,6 +26,8 @@ from spartan_tpu_torch.ops import sumcheck_kernels as SK
 from spartan_tpu_torch.ops.limbs import limbs_to_ints, to_tensor
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 P = F.FR.modulus
 R = 1 << 256
 

@@ -19,13 +19,14 @@ import torch
 from spartan_tpu_torch.utils import timer as T
 from spartan_tpu_torch.utils.timer import Timer
 
+from torch_threads import _one_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
-    """One intra-op thread, printing off, collection off and the
-    accumulators empty before and after, and the device sync counted."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """Printing off, collection off and the accumulators empty before and
+    after, and the device sync counted (the module's one intra-op thread
+    comes from ``torch_threads``)."""
     monkeypatch.setattr(Timer, "_enabled", False)
     syncs = []
     monkeypatch.setattr(T, "_sync", lambda: syncs.append(1))
@@ -34,7 +35,6 @@ def _clean(monkeypatch):
     yield syncs
     Timer.collect(False)
     Timer.acc_reset()
-    torch.set_num_threads(before)
 
 
 def _three_levels(pause: float = 0.0):

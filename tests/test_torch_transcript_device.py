@@ -1,12 +1,13 @@
 """The port's device transcript and fused sumcheck tail on the CPU.
 
 Every case runs the plain versions (what T1 and T2 run on a CPU tensor)
-and holds them to the port's host transcript, to ``utils/strobe.py``, to
-the per-round batched sumcheck, or to ``spartan_tpu``'s per-round prover:
-the cases of ``tests/test_transcript_device.py`` on the port. The ``gpu``
-cases hold the kernels T1 and T2 to their plain versions. All arithmetic is
-exact, so every comparison is equality. The JAX package is imported
-inside the test that uses it.
+and holds them to the port's host transcript, to ``utils/strobe.py``, or
+to ``spartan_tpu``'s batched product sumcheck (at 2^13 and 2^14 entries to
+a replay of its rounds on the host integer functions): the cases of
+``tests/test_transcript_device.py`` on the port. The ``gpu`` cases hold the
+kernels T1 and T2 to their plain versions. All arithmetic is exact, so
+every comparison is equality. The JAX package is imported inside the
+function that uses it.
 """
 
 import secrets
@@ -27,18 +28,9 @@ from spartan_tpu_torch.ops.keccak import _keccak_f1600_bytes_py
 from spartan_tpu_torch.utils.strobe import Strobe128
 from spartan_tpu_torch.utils.transcript import Transcript
 
+from torch_threads import _one_thread  # noqa: F401
+
 P = F.FR.modulus
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module: its cases are many small
-    tensor ops, which a parallel test run slows by tens of times when each
-    op waits for threads the other workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u8(b: bytes) -> torch.Tensor:
@@ -143,64 +135,98 @@ def _instance(n, nP, nS):
     return A, B, Cp, Cs, claim, coeffs
 
 
-_PER_ROUND: dict = {}   # per-round proofs, each shape proven once per module
-
-
-def _prove(monkeypatch, fused, n, nP, nS, label=b"fused equiv"):
-    key = (n, nP, nS, label)
-    if not fused and key in _PER_ROUND:
-        return _PER_ROUND[key]
-    monkeypatch.setattr(SF, "FUSED", fused)
+def _prove(n, nP, nS, label=b"fused equiv"):
     A, B, Cp, Cs, claim, coeffs = _instance(n, nP, nS)
     tr = Transcript(label)
     res = SumcheckInstanceProof.prove_cubic_batched(
         claim, n.bit_length() - 1, (A[:nP], B[:nP], Cp), (A[nP:], B[nP:], Cs), coeffs, tr)
-    if not fused:
-        _PER_ROUND[key] = res, tr
     return res, tr
 
 
-@pytest.mark.parametrize("n,nP,nS,small", [
-    (64, 3, 0, None), (32, 2, 2, None), (128, 12, 6, None),
-    # the above-tail chain (S2 -> T1 -> S1/S2) at the leaf layout
-    (128, 12, 6, 16),
-    # up to SMALL_BUCKET_N (2^14): the whole sumcheck in one T2
-    (8192, 1, 0, None), (16384, 1, 1, None),
-])
-def test_fused_sumcheck_bit_identical(monkeypatch, n, nP, nS, small):
-    if small is not None:
-        monkeypatch.setattr(SF, "SMALL_BUCKET_N", small)
-    (p1, r1, cp1, cd1), t1 = _prove(monkeypatch, True, n, nP, nS)
-    (p2, r2, cp2, cd2), t2 = _prove(monkeypatch, False, n, nP, nS)
-    assert [q.coeffs_except_linear_term for q in p1.compressed_polys] == \
-        [q.coeffs_except_linear_term for q in p2.compressed_polys]
-    assert r1 == r2
-    assert cp1 == cp2 and cd1 == cd2
-    assert bytes(t1.strobe.state) == bytes(t2.strobe.state)
-    assert (t1.strobe.pos, t1.strobe.pos_begin) == (t2.strobe.pos, t2.strobe.pos_begin)
+def _sponge(transcript):
+    s = transcript.strobe
+    return bytes(s.state), s.pos, s.pos_begin
 
 
-def test_fused_matches_jax_per_round(monkeypatch):
-    """The fused path (plain T2) gives spartan_tpu's per-round prover's
-    round polynomials, challenges and claims on the same tables."""
+def _claims(claims_prod, claims_dotp):
+    (ap, bp, cp), (ad, bd, cd) = claims_prod, claims_dotp
+    return [int(v) for v in (*ap, *bp, cp, *ad, *bd, *cd)]
+
+
+def _jax_reference(n, nP, nS, label):
+    """spartan_tpu's prove_cubic_batched on the same tables: round
+    polynomials, challenges, claims and final sponge."""
+    import jax.numpy as jnp
+
     from spartan_tpu.core import sumcheck as JSC
     from spartan_tpu.core.mle import DensePolynomial as JDP
     from spartan_tpu.utils.transcript import Transcript as JTranscript
     from spartan_tpu_torch import interop
 
-    import jax.numpy as jnp
-
-    n, nP, nS = 64, 3, 0
-    (proof, r, cp, cd), _ = _prove(monkeypatch, True, n, nP, nS, b"vs jax")
     A, B, Cp, Cs, claim, coeffs = _instance(n, nP, nS)
-    j = lambda p: JDP(jnp.asarray(interop.from_port(p.Z)))
-    jproof, jr, jcp, jcd = JSC.SumcheckInstanceProof.prove_cubic_batched(
-        claim, 6, ([j(p) for p in A], [j(p) for p in B], j(Cp)), ([], [], []), coeffs,
-        JTranscript(b"vs jax"))
-    assert r == jr
-    assert [p.coeffs_except_linear_term for p in proof.compressed_polys] == \
-        [p.coeffs_except_linear_term for p in jproof.compressed_polys]
-    assert cp == (list(jcp[0]), list(jcp[1]), jcp[2])
+
+    def j(ps):
+        return [JDP(jnp.asarray(interop.from_port(p.Z))) for p in ps]
+
+    tr = JTranscript(label)
+    proof, r, cp, cd = JSC.SumcheckInstanceProof.prove_cubic_batched(
+        claim, n.bit_length() - 1, (j(A[:nP]), j(B[:nP]), j([Cp])[0]),
+        (j(A[nP:]), j(B[nP:]), j(Cs)), coeffs, tr)
+    return ([p.coeffs_except_linear_term for p in proof.compressed_polys], r,
+            _claims(cp, cd), _sponge(tr))
+
+
+def _host_reference(n, nP, nS, label):
+    """The rounds replayed on the hostpath integer functions with the host
+    Transcript (sumcheck.rs:165-330), as ``_jax_reference`` returns them."""
+    from spartan_tpu_torch.core.unipoly import UniPoly
+
+    A, B, Cp, Cs, claim, coeffs = _instance(n, nP, nS)
+    HA, HB = [F.decode_fr(p.Z) for p in A], [F.decode_fr(p.Z) for p in B]
+    HCp, HCs = F.decode_fr(Cp.Z), [F.decode_fr(p.Z) for p in Cs]
+    tr = Transcript(label)
+    e, polys, r = claim % P, [], []
+    for _ in range(n.bit_length() - 1):
+        ev = [HP.cubic_prod_evals(HA[k], HB[k], HCp if k < nP else HCs[k - nP])
+              for k in range(nP + nS)]
+        c0, c2, c3 = (sum(v[i] * c for v, c in zip(ev, coeffs)) % P for i in range(3))
+        poly = UniPoly.from_evals([c0, (e - c0) % P, c2, c3])
+        poly.append_to_transcript(b"poly", tr)
+        r_j = tr.challenge_scalar(b"challenge_nextround")
+        HA, HB, HCs = ([HP.fold_top(t, r_j) for t in T] for T in (HA, HB, HCs))
+        HCp = HP.fold_top(HCp, r_j)
+        polys.append(poly.compress().coeffs_except_linear_term)
+        r.append(r_j)
+        e = poly.evaluate(r_j)
+    claims = ([t[0] for t in HA[:nP]], [t[0] for t in HB[:nP]], HCp[0]), \
+        ([t[0] for t in HA[nP:]], [t[0] for t in HB[nP:]], [t[0] for t in HCs])
+    return polys, r, _claims(*claims), _sponge(tr)
+
+
+@pytest.mark.parametrize("n,nP,nS,small,label", [
+    (64, 3, 0, None, b"fused equiv"), (32, 2, 2, None, b"fused equiv"),
+    (128, 12, 6, None, b"fused equiv"),
+    # the above-tail chain (S2 -> T1 -> S1/S2) at the leaf layout
+    (128, 12, 6, 16, b"fused equiv"),
+    (64, 3, 0, None, b"vs jax"),
+    # up to SMALL_BUCKET_N (2^14): the whole sumcheck in one T2
+    (8192, 1, 0, None, b"fused equiv"), (16384, 1, 1, None, b"fused equiv"),
+], ids=["64-3-0-None", "32-2-2-None", "128-12-6-None", "128-12-6-16", "vs-jax",
+        "8192-1-0-None", "16384-1-1-None"])
+def test_fused_sumcheck_bit_identical(monkeypatch, n, nP, nS, small, label):
+    """The fused driver gives spartan_tpu's prove_cubic_batched's round
+    polynomials, challenges, claims and final sponge on the same tables; at
+    2^13 and 2^14 entries, where spartan_tpu's run is slow, the host replay
+    of its rounds stands in for it."""
+    if small is not None:
+        monkeypatch.setattr(SF, "SMALL_BUCKET_N", small)
+    (proof, r, cp, cd), tr = _prove(n, nP, nS, label)
+    ref = _host_reference if n >= 1 << 13 else _jax_reference
+    polys, r_ref, claims, sponge = ref(n, nP, nS, label)
+    assert [q.coeffs_except_linear_term for q in proof.compressed_polys] == polys
+    assert r == r_ref
+    assert _claims(cp, cd) == claims
+    assert _sponge(tr) == sponge
 
 
 def test_diverging_device_sponge_raises(monkeypatch):
@@ -213,26 +239,16 @@ def test_diverging_device_sponge_raises(monkeypatch):
 
     monkeypatch.setattr(TD, "pack_sponge", corrupted)
     with pytest.raises(RuntimeError, match="diverged from host at round 0"):
-        _prove(monkeypatch, True, 32, 2, 2)
-
-
-def test_fused_off_on_cpu_by_default(monkeypatch):
-    monkeypatch.setattr(SF, "FUSED", None)
-    assert not SF.fused_enabled(torch.device("cpu"))
-    assert SF.fused_enabled(torch.device("cuda"))
-    monkeypatch.setattr(SF, "FUSED", False)
-    assert not SF.fused_enabled(torch.device("cuda"))
-    monkeypatch.setattr(SF, "FUSED", True)
-    assert SF.fused_enabled(torch.device("cpu"))
+        _prove(32, 2, 2)
 
 
 def test_host_threshold_does_not_change_fused_rounds(monkeypatch):
-    """With the fused path on, HOST_N no longer decides anything for the
-    batched product sumcheck (it goes to T2 before the host switch)."""
+    """HOST_N decides nothing for the batched product sumcheck without a
+    mesh (every round goes to the fused driver)."""
     monkeypatch.setattr(HP, "HOST_N", 2)
-    (p1, r1, cp1, _), _ = _prove(monkeypatch, True, 64, 2, 1)
+    (p1, r1, cp1, _), _ = _prove(64, 2, 1)
     monkeypatch.setattr(HP, "HOST_N", 2048)
-    (p2, r2, cp2, _), _ = _prove(monkeypatch, True, 64, 2, 1)
+    (p2, r2, cp2, _), _ = _prove(64, 2, 1)
     assert r1 == r2 and cp1 == cp2
 
 
